@@ -1,0 +1,121 @@
+"""Model configuration of the port: its own copies of the JAX package's
+ModelConfig (config.py), Wav2Vec2Config (models/wav2vec2.py) and XLMRConfig
+(models/xlmr.py), with the same fields and defaults, so a JAX checkpoint's
+config JSON loads here unchanged."""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+from typing import Tuple, Union
+
+
+@dataclasses.dataclass(frozen=True)
+class Wav2Vec2Config:
+    conv_dim: Tuple[int, ...] = (512,) * 7
+    conv_stride: Tuple[int, ...] = (5, 2, 2, 2, 2, 2, 2)
+    conv_kernel: Tuple[int, ...] = (10, 3, 3, 3, 3, 2, 2)
+    conv_bias: bool = False
+    hidden_size: int = 768
+    num_hidden_layers: int = 12
+    num_attention_heads: int = 12
+    intermediate_size: int = 3072
+    layer_norm_eps: float = 1e-5
+    num_conv_pos_embeddings: int = 128
+    num_conv_pos_embedding_groups: int = 16
+    do_stable_layer_norm: bool = False
+    feat_extract_norm: str = "group"  # "group" | "layer"
+    gated_relpos_bias: bool = False
+    num_buckets: int = 320
+    max_bucket_distance: int = 800
+    hidden_dropout: float = 0.1
+    attention_dropout: float = 0.1
+    activation_dropout: float = 0.1
+    apply_spec_augment: bool = True
+    mask_time_prob: float = 0.05
+    mask_time_length: int = 10
+
+    def feat_extract_output_lengths(self, input_lengths):
+        """HF Wav2Vec2Model._get_feat_extract_output_lengths (ints or
+        integer tensors)."""
+        lengths = input_lengths
+        for k, s in zip(self.conv_kernel, self.conv_stride):
+            lengths = (lengths - k) // s + 1
+        return lengths
+
+
+@dataclasses.dataclass(frozen=True)
+class XLMRConfig:
+    vocab_size: int = 250002
+    hidden_size: int = 768
+    num_hidden_layers: int = 12
+    num_attention_heads: int = 12
+    intermediate_size: int = 3072
+    max_position_embeddings: int = 514
+    type_vocab_size: int = 1
+    pad_token_id: int = 1
+    layer_norm_eps: float = 1e-5
+    hidden_dropout: float = 0.1
+    attention_dropout: float = 0.1
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    num_labels: int = 4
+    adapter_dim: int = 256
+    shared_dim: int = 256
+    num_heads: int = 8
+    proj_dim: int = 512
+    classifier_layers: int = 35
+    classifier_base_dim: int = 512
+    classifier_dropout: float = 0.15
+    cross_dropout: float = 0.1
+    fusion_dropout: float = 0.1
+    anchor_dropout: float = 0.1
+    use_quality_gates: bool = True
+    use_audio_conditioning: bool = True
+    use_asr: bool = False
+    frontend_dsp: bool = True
+    zero_non_accept: bool = False
+    pad_frames_valid: bool = False
+    audio: Wav2Vec2Config = dataclasses.field(default_factory=Wav2Vec2Config)
+    text: XLMRConfig = dataclasses.field(default_factory=XLMRConfig)
+    compute_dtype: str = "float32"
+    remat_encoders: Union[bool, str] = True
+
+    @property
+    def audio_hidden(self) -> int:
+        return self.audio.hidden_size
+
+    @property
+    def text_hidden(self) -> int:
+        return self.text.hidden_size
+
+
+_NESTED = {"audio": Wav2Vec2Config, "text": XLMRConfig}
+
+
+def to_json(cfg: ModelConfig) -> str:
+    return json.dumps(dataclasses.asdict(cfg), indent=2)
+
+
+def _from_dict(cls, d: dict):
+    names = {f.name for f in dataclasses.fields(cls)}
+    kwargs = {}
+    for k, v in d.items():
+        if k not in names:
+            continue
+        if isinstance(v, dict) and k in _NESTED:
+            v = _from_dict(_NESTED[k], v)
+        elif isinstance(v, list):
+            v = tuple(v)
+        kwargs[k] = v
+    return cls(**kwargs)
+
+
+def from_json(s: str) -> ModelConfig:
+    """ModelConfig from the JSON of a ModelConfig, or from a JAX
+    checkpoint's whole-Config JSON (its "model" entry). Unknown keys are
+    ignored, as the JAX package's loader does."""
+    d = json.loads(s)
+    return _from_dict(ModelConfig, d.get("model", d))

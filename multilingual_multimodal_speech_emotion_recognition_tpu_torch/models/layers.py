@@ -1,0 +1,184 @@
+"""Primitive layers as plain functions on tensors, over nested dicts of
+parameters with the JAX package's keys and layouts.
+
+  * ``linear``:     ``{"kernel": [in, out], "bias": [out]}``, y = x @ W + b
+  * ``layer_norm``: ``{"scale": [dim], "bias": [dim]}``
+  * ``mha``:        separate q/k/v/out projections, each a ``linear``
+
+Counterpart of multilingual_multimodal_speech_emotion_recognition_tpu/
+models/layers.py. Eval only: there is no dropout.
+
+`Init` draws parameters with the JAX package's init distributions (the
+values differ: torch and JAX generators give other numbers); on the meta
+device it only makes shapes, which the weight bridge uses as its template.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+Tensor = torch.Tensor
+
+
+class Init:
+    """Parameter factory over one torch.Generator, device and dtype."""
+
+    def __init__(self, generator: Optional[torch.Generator],
+                 device: torch.device, dtype: torch.dtype = torch.float32):
+        self.device = torch.device(device)
+        self.dtype = dtype
+        if generator is None and self.device.type != "meta":
+            generator = torch.Generator(device=self.device).manual_seed(0)
+        self.generator = generator
+
+    def _empty(self, shape) -> Tensor:
+        return torch.empty(tuple(shape), device=self.device, dtype=self.dtype)
+
+    def normal(self, shape, std: float = 1.0) -> Tensor:
+        t = self._empty(shape)
+        return t if t.is_meta else t.normal_(0.0, std, generator=self.generator)
+
+    def uniform(self, shape, bound: float) -> Tensor:
+        t = self._empty(shape)
+        return t if t.is_meta else t.uniform_(-bound, bound,
+                                              generator=self.generator)
+
+    def zeros(self, shape) -> Tensor:
+        return torch.zeros(tuple(shape), device=self.device, dtype=self.dtype)
+
+    def ones(self, shape) -> Tensor:
+        return torch.ones(tuple(shape), device=self.device, dtype=self.dtype)
+
+
+def xavier_bound(fan_in: int, fan_out: int) -> float:
+    return math.sqrt(6.0 / (fan_in + fan_out))
+
+
+def kaiming_bound(fan_in: int) -> float:
+    """torch.nn.Linear's default weight bound (kaiming_uniform, a=sqrt(5))."""
+    return math.sqrt(1.0 / fan_in) * math.sqrt(3.0)
+
+
+def init_linear(init: Init, in_dim: int, out_dim: int, *, xavier: bool = False,
+                stack: tuple = ()) -> dict:
+    """torch.nn.Linear's default init, or xavier with a zero bias; the
+    kernel is [in, out] and `stack` prepends layer dimensions."""
+    shape = (*stack, in_dim, out_dim)
+    if xavier:
+        return {"kernel": init.uniform(shape, xavier_bound(in_dim, out_dim)),
+                "bias": init.zeros((*stack, out_dim))}
+    return {"kernel": init.uniform(shape, kaiming_bound(in_dim)),
+            "bias": init.uniform((*stack, out_dim), 1.0 / math.sqrt(in_dim))}
+
+
+def init_normal_linear(init: Init, in_dim: int, out_dim: int, std: float,
+                       stack: tuple = ()) -> dict:
+    """HF-style normal(0, std) kernel with zero bias."""
+    return {"kernel": init.normal((*stack, in_dim, out_dim), std),
+            "bias": init.zeros((*stack, out_dim))}
+
+
+def init_layer_norm(init: Init, dim: int, stack: tuple = ()) -> dict:
+    return {"scale": init.ones((*stack, dim)), "bias": init.zeros((*stack, dim))}
+
+
+def linear(params: dict, x: Tensor) -> Tensor:
+    if "kernel_q" in params:
+        raise NotImplementedError(
+            "int8 linear layers are not ported yet (ROADMAP Queue A item 13)")
+    y = torch.matmul(x, params["kernel"])
+    if "bias" in params:
+        y = y + params["bias"]
+    return y
+
+
+def gelu(x: Tensor) -> Tensor:
+    """Exact erf GELU in f32, the tanh approximation in bf16 (the JAX
+    package's per-dtype contract)."""
+    return F.gelu(x, approximate="tanh" if x.dtype == torch.bfloat16 else "none")
+
+
+def layer_norm(params: dict, x: Tensor, *, eps: float = 1e-5) -> Tensor:
+    """Moments in f32 whatever the activation dtype; returns x.dtype."""
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    var = (xf - mean).square().mean(-1, keepdim=True)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    y = y * params["scale"].float() + params["bias"].float()
+    return y.to(x.dtype)
+
+
+def init_mha(init: Init, embed_dim: int) -> dict:
+    """torch.nn.MultiheadAttention's init, its packed in_proj split into
+    q/k/v linears (xavier over the packed [3E, E] matrix, zero biases)."""
+    a = xavier_bound(embed_dim, 3 * embed_dim)
+    qkv = {n: {"kernel": init.uniform((embed_dim, embed_dim), a),
+               "bias": init.zeros((embed_dim,))} for n in ("q", "k", "v")}
+    out = {"kernel": init.uniform((embed_dim, embed_dim),
+                                  kaiming_bound(embed_dim)),
+           "bias": init.zeros((embed_dim,))}
+    return {**qkv, "out": out}
+
+
+def mha(params: dict, q: Tensor, k: Tensor, v: Tensor, *, num_heads: int,
+        key_padding_mask: Optional[Tensor] = None) -> Tensor:
+    """Multi-head attention with torch.nn.MultiheadAttention's semantics.
+
+    q: [B, Sq, E], k/v: [B, Sk, E]; key_padding_mask: [B, Sk] with 1 for
+    VALID (the inverse of torch's convention). The logits are divided by
+    sqrt(Dh) after the product, masked with -inf, and the softmax runs in
+    f32; its weights are cast back to q.dtype before the value product.
+    """
+    B, Sq, E = q.shape
+    Sk = k.shape[1]
+    H = num_heads
+    D = E // H
+    qh = linear(params["q"], q).reshape(B, Sq, H, D)
+    kh = linear(params["k"], k).reshape(B, Sk, H, D)
+    vh = linear(params["v"], v).reshape(B, Sk, H, D)
+    logits = torch.einsum("bqhd,bkhd->bhqk", qh, kh).float()
+    logits = logits / math.sqrt(D)
+    if key_padding_mask is not None:
+        pad = (key_padding_mask == 0)[:, None, None, :]
+        logits = logits.masked_fill(pad, -math.inf)
+    attn = torch.softmax(logits, dim=-1).to(q.dtype)
+    ctx = torch.einsum("bhqk,bkhd->bqhd", attn, vh).reshape(B, Sq, E)
+    return linear(params["out"], ctx)
+
+
+def layer_at(stacked: dict, i: int) -> dict:
+    """Layer i of stacked [L, ...] parameters {name: {leaf: tensor}}."""
+    return {name: {k: v[i] for k, v in sub.items()} for name, sub in stacked.items()}
+
+
+def key_mask_bias(mask: Tensor) -> Tensor:
+    """Additive f32 attention bias [B, 1, 1, S]: -inf on padded keys."""
+    bias = torch.zeros(mask.shape, dtype=torch.float32, device=mask.device)
+    return bias.masked_fill(mask == 0, -math.inf)[:, None, None, :]
+
+
+def post_ln_encoder_stack(stacked: dict, h: Tensor, attn_bias: Tensor, *,
+                          num_heads: int, eps: float) -> Tensor:
+    """Post-LN transformer layers over stacked [L, ...] parameters, shared
+    by wav2vec2 and XLM-R. q is scaled by 1/sqrt(Dh) before the product;
+    the softmax runs in f32 and is cast back to h.dtype."""
+    B, S, E = h.shape
+    H = num_heads
+    D = E // H
+    scale = D ** -0.5
+    for i in range(stacked["q"]["kernel"].shape[0]):
+        layer = layer_at(stacked, i)
+        q = (linear(layer["q"], h) * scale).reshape(B, S, H, D)
+        k = linear(layer["k"], h).reshape(B, S, H, D)
+        v = linear(layer["v"], h).reshape(B, S, H, D)
+        logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() + attn_bias
+        attn = torch.softmax(logits, dim=-1).to(h.dtype)
+        ctx = torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(B, S, E)
+        h = layer_norm(layer["attn_ln"], h + linear(layer["out"], ctx), eps=eps)
+        f = linear(layer["ffn_out"], gelu(linear(layer["ffn_in"], h)))
+        h = layer_norm(layer["final_ln"], h + f, eps=eps)
+    return h
