@@ -1,19 +1,31 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one NVIDIA GPU.
+"""Drive the PyTorch port's paths on one NVIDIA GPU.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases, one JSON line each:
   1. device   the card (nvidia-smi's name and power limit on a line of its own)
-  2. build    nvcc builds every kernel of the path from csrc/ (sm_90a)
+  2. build    nvcc builds every kernel from csrc/ (sm_90a), one process per
+              source, all started together
   3. kernel   each kernel against its plain PyTorch version on the card, at
-              the main path's shapes, with times and the card's bound
+              its paths' shapes, with times and the card's bound
   4. agree    a small model on the card against the same model on the CPU
-  5. path     the flagship eval forward (wav2vec2-base + XLM-R-base ->
-              35-layer OpenMax head, bf16) through `model_forward`, at B=4
-              (a few requests) and at B=128 with 4 s clips; every launch
-              counter is set to 0 before and read after each run
+  5. path     each path through the entry points a user calls, with every
+              launch counter set to 0 just before and read just after:
+              - the flagship eval forward (wav2vec2-base + XLM-R-base ->
+                35-layer OpenMax head, bf16) through `model_forward`, at B=4
+                and at B=128 with 4 s clips (kernel A1);
+              - `feature_encoder(allow_fused=True)` at wav2vec2-base width,
+                4 s clips, B=4 and B=128, bf16, against the unfused
+                extractor (kernel A4);
+              - `flash_attention` at the attention sites of the flagship's
+                shapes (kernel A3) and `attentive_stats_pooling` at its
+                pooling sites (kernel A2), B=4 and B=128: the JAX package
+                reaches these two kernels only through these functions
 Then the `kernels` line and, last, {"ok": true, "device": {...}}.
+
+A tolerance `tol` is held as the JAX package's tests hold theirs:
+|kernel - plain| <= tol * (1 + |plain|) elementwise (rtol = atol = tol).
 
 Any failure raises and exits non-zero; a machine without a CUDA device
 exits 1 before printing any result.
@@ -30,11 +42,27 @@ import numpy as np
 
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12       # f32 outside the tensor cores
-KERNEL_TOL = 1e-4            # kernel vs plain: summation order over K=512 x 35 layers
+H100_BF16_FLOPS = 989e12     # bf16 tensor cores, dense
+KERNEL_TOL = 1e-4            # kernel vs plain in f32: summation order
+BF16_TOL = {"conv_tail": 4e-2,   # the JAX package's bound for the fused tail
+            "attention": 3e-2}   # and for bf16 pooling: one output rounding
 AGREE_TOL = {"float32": 1e-4,   # card vs CPU, TF32 off: summation order only
              "bfloat16": 3e-2}  # bf16 rounding at other places (the JAX package's bf16 bound)
 REQUESTS_B4 = 5
 REQUESTS_B128 = 3
+CLIP_SAMPLES = 4 * 16000
+TEXT_TOKENS = 32
+ATTENTION_SITES = {  # (Sq, Skv, D, heads) at the flagship's shapes
+    "wav2vec2_self": (199, 199, 768, 12),
+    "xlmr_self": (TEXT_TOKENS, TEXT_TOKENS, 768, 12),
+    "cross_audio_to_text": (199, TEXT_TOKENS, 256, 8),
+    "cross_text_to_audio": (TEXT_TOKENS, 199, 256, 8),
+}
+POOLING_SITES = {"pool_a": (199, 768), "pool_t": (TEXT_TOKENS, 768)}  # (S, D)
+POOL_HIDDEN = 128
+KERNEL_NAMES = ("residual_stack", "conv_tail", "flash_attention", "attentive_pooling")
+SOURCE = "multilingual_multimodal_speech_emotion_recognition_tpu_torch/csrc/{}.cu"
+REPLACES = "multilingual_multimodal_speech_emotion_recognition_tpu/ops/pallas_kernels.py:{}"
 
 
 def emit(obj) -> None:
@@ -54,6 +82,30 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def bound(nbytes: float, op_seconds: float):
+    """Least time on an H100 (ms) and what bounds it: the bytes moved at
+    the memory rate against the operations at their type's peak rate."""
+    t_bytes = nbytes / H100_BYTES_PER_S
+    return 1e3 * max(t_bytes, op_seconds), ("bytes" if t_bytes >= op_seconds else "operations")
+
+
+def product_rate(*dtypes) -> float:
+    """Peak rate of a product whose operands have these types: bf16 tensor
+    cores when all are bf16 (f32 accumulation is exact there), else f32
+    FMAs."""
+    import torch
+    return H100_BF16_FLOPS if all(d == torch.bfloat16 for d in dtypes) else H100_F32_FLOPS
+
+
+def check_close(name: str, got, want, tol: float) -> float:
+    """max |got - want|; raises unless got is within tol of want."""
+    import torch
+    err = float((got.float() - want.float()).abs().max())
+    if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
+        raise AssertionError(f"{name}: max |kernel - plain| {err} over tolerance {tol}")
+    return err
 
 
 def tiny_config(compute_dtype: str):
@@ -105,12 +157,89 @@ def residual_stack_inputs(torch, B: int, L: int, D: int, seed: int):
 
 
 def residual_stack_bound(B: int, L: int, D: int):
-    """Least time on an H100 (ms) and what bounds it: each input read once
-    and the output written once, against the f32 FMAs of the two products."""
+    """Each input read once and the output written once, against the f32
+    FMAs of the two products."""
     nbytes = 4 * (2 * B * D + L * (2 * D * D + 6 * D))
-    flops = 2 * 2 * B * L * D * D
-    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_F32_FLOPS
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    return bound(nbytes, 2 * 2 * B * L * D * D / H100_F32_FLOPS)
+
+
+def conv_tail_inputs(torch, B: int, T1: int, C: int, dtype, *, has_ln: bool, seed: int):
+    """The tail's seven-layer stack (He-scaled kernels [C_out, C_in, K]) and
+    a layer-0 output x1 [B, T1, C] shaped like a GELU's."""
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.ops import (
+        conv_tail as ct)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rnd = lambda *s: torch.randn(*s, device="cuda", generator=g)
+    convs = [{"kernel": rnd(C, 1, 10).to(dtype)}]
+    for K in ct.TAIL_KERNELS:
+        conv = {"kernel": (rnd(C, C, K) * (2.0 / (K * C)) ** 0.5).to(dtype)}
+        if has_ln:
+            conv["bias"] = (0.1 * rnd(C)).to(dtype)
+            conv["ln"] = {"scale": 1 + 0.1 * rnd(C), "bias": 0.1 * rnd(C)}
+        convs.append(conv)
+    x1 = torch.nn.functional.gelu(rnd(B, T1, C)).to(dtype)
+    return convs, x1
+
+
+def conv_tail_bound(B: int, T1: int, C: int, dtype):
+    """x1 read once, the weights once, the output written once, against
+    the six layers' products."""
+    import torch
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.ops import (
+        conv_tail as ct)
+    size = 2 if dtype == torch.bfloat16 else 4
+    lengths = ct.tail_lengths(T1)
+    flops = sum(2 * B * t * K * C * C for t, K in zip(lengths, ct.TAIL_KERNELS))
+    nbytes = size * (B * T1 * C + sum(ct.TAIL_KERNELS) * C * C + B * lengths[-1] * C)
+    return bound(nbytes, flops / product_rate(dtype)), flops
+
+
+def attention_inputs(torch, B: int, Sq: int, Skv: int, D: int, dtype, seed: int):
+    """q, k, v and a key mask with row 0's second half and every third key
+    of the last row padded."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(B, Sq, D, device="cuda", generator=g).to(dtype)
+    k = torch.randn(B, Skv, D, device="cuda", generator=g).to(dtype)
+    v = torch.randn(B, Skv, D, device="cuda", generator=g).to(dtype)
+    mask = torch.ones(B, Skv, device="cuda")
+    mask[0, Skv // 2:] = 0
+    mask[-1, ::3] = 0
+    return q, k, v, mask
+
+
+def attention_bound(B: int, Sq: int, Skv: int, D: int, dtype):
+    """q, k, v, the mask and the output moved once, against q.k (on the
+    tensor cores for bf16 inputs) and p.v (p is f32: f32 FMAs)."""
+    import torch
+    size = 2 if dtype == torch.bfloat16 else 4
+    nbytes = size * (2 * B * Sq * D + 2 * B * Skv * D) + 4 * B * Skv
+    flops = 2 * B * Sq * Skv * D
+    return bound(nbytes, flops / product_rate(dtype) + flops / H100_F32_FLOPS)
+
+
+def pooling_inputs(torch, B: int, S: int, D: int, dtype, seed: int):
+    """Pooling parameters at the model's init scale, x, and a frame mask
+    with row 0's second half padded."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rnd = lambda *s: torch.randn(*s, device="cuda", generator=g)
+    H = POOL_HIDDEN
+    params = {"w1": {"kernel": (rnd(D, H) / D ** 0.5).to(dtype), "bias": (0.1 * rnd(H)).to(dtype)},
+              "w2": {"kernel": (rnd(H, 1) / H ** 0.5).to(dtype), "bias": (0.1 * rnd(1)).to(dtype)}}
+    mask = torch.ones(B, S, device="cuda")
+    mask[0, S // 2:] = 0
+    return params, rnd(B, S, D).to(dtype), mask
+
+
+def pooling_bound(B: int, S: int, D: int, dtype):
+    """x, the mask, the parameters and the output moved once, against the
+    score MLP (tensor cores for bf16 x and W1) and the f32 statistics."""
+    import torch
+    H = POOL_HIDDEN
+    size = 2 if dtype == torch.bfloat16 else 4
+    nbytes = size * (B * S * D + D * H + 2 * H + 1 + 2 * B * D) + 4 * B * S
+    op_s = (2 * B * S * D * H / product_rate(dtype, dtype)
+            + (2 * B * S * H + 4 * B * S * D) / H100_F32_FLOPS)
+    return bound(nbytes, op_s)
 
 
 def tree_to(tree, device):
@@ -121,6 +250,15 @@ def tree_to(tree, device):
     return tree.to(device)
 
 
+def reset_counts(wrappers) -> None:
+    for w in wrappers.values():
+        w.launches = 0
+
+
+def counts(wrappers) -> dict:
+    return {name: w.launches for name, w in wrappers.items()}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -129,9 +267,14 @@ def main() -> int:
     from multilingual_multimodal_speech_emotion_recognition_tpu_torch.config import (
         ModelConfig)
     from multilingual_multimodal_speech_emotion_recognition_tpu_torch.models import (
-        model as mdl)
+        layers, model as mdl, wav2vec2 as w2v)
     from multilingual_multimodal_speech_emotion_recognition_tpu_torch.ops import (
-        _build, residual_stack as rs)
+        _build, attentive_pooling as ap, conv_tail as ct, flash_attention as fa,
+        residual_stack as rs)
+    wrappers = {"residual_stack": rs.residual_stack, "conv_tail": ct.conv_tail,
+                "flash_attention": fa.flash_attention,
+                "attentive_pooling": ap.attentive_stats_pooling}
+    bf16 = torch.bfloat16
 
     # 1. device
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -148,13 +291,16 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    rs.build()
-    emit({"phase": "build", "kernels": ["residual_stack"],
+    _build.build_all(KERNEL_NAMES)
+    for module in (rs, ct, fa, ap):
+        module.build()
+    emit({"phase": "build", "kernels": list(KERNEL_NAMES),
           "seconds": time.perf_counter() - t0,
-          "ptxas": [ln for ln in (_build.BUILD_DIR / "residual_stack.log")
-                    .read_text().splitlines() if "registers" in ln or "spill" in ln]})
+          "ptxas": {k: [ln for ln in (_build.BUILD_DIR / f"{k}.log").read_text().splitlines()
+                        if "registers" in ln or "spill" in ln]
+                    for k in KERNEL_NAMES if (_build.BUILD_DIR / f"{k}.log").exists()}})
 
-    # 3. kernel against its plain version
+    # 3a. A1: the residual stack
     L, D = 35, 512
     rs.residual_stack.launches = 0
     errs = {}
@@ -163,10 +309,7 @@ def main() -> int:
         got = rs.residual_stack(stacked, x)
         want = rs.residual_stack_plain(stacked, x)
         torch.cuda.synchronize()
-        errs[B] = float((got - want).abs().max())
-        if not torch.allclose(got, want, rtol=KERNEL_TOL, atol=KERNEL_TOL):
-            raise AssertionError(f"residual_stack B={B}: max |kernel - plain| "
-                                 f"{errs[B]} over tolerance {KERNEL_TOL}")
+        errs[B] = check_close(f"residual_stack B={B}", got, want, KERNEL_TOL)
     if rs.residual_stack.launches != 6:
         raise AssertionError(f"residual_stack launched {rs.residual_stack.launches} "
                              "times for 6 calls")
@@ -180,6 +323,98 @@ def main() -> int:
             "bound_ms": bound_ms, "bound_by": bound_by}
     emit({"phase": "kernel", "name": "residual_stack", "L": L, "D": D,
           "tol": KERNEL_TOL, "max_abs_err": errs, "timing": timing})
+
+    # 3b. A4: the conv-extractor tail, at the layer-0 output of 4 s clips
+    C = 512
+    T1 = (CLIP_SAMPLES - 10) // 5 + 1
+    tail = {"max_abs_err": {}, "timing": {}}
+    for label, B, dtype, has_ln, tol in (
+            ("bf16 B=4", 4, bf16, False, BF16_TOL["conv_tail"]),
+            ("bf16 B=128", 128, bf16, False, BF16_TOL["conv_tail"]),
+            ("bf16 B=4 ln+bias", 4, bf16, True, BF16_TOL["conv_tail"]),
+            ("f32 B=4", 4, torch.float32, False, KERNEL_TOL),
+            ("f32 B=4 ln+bias", 4, torch.float32, True, KERNEL_TOL)):
+        convs, x1 = conv_tail_inputs(torch, B, T1, C, dtype, has_ln=has_ln, seed=B)
+        got = ct.conv_tail(convs, x1, has_ln=has_ln)
+        want = ct.conv_tail_plain(convs, x1, has_ln=has_ln)
+        torch.cuda.synchronize()
+        if tuple(got.shape) != (B, ct.tail_lengths(T1)[-1], C):
+            raise AssertionError(f"conv_tail {label}: shape {tuple(got.shape)}")
+        tail["max_abs_err"][label] = check_close(f"conv_tail {label}", got, want, tol)
+        del got, want
+    for B, iters in ((4, 20), (128, 3)):
+        convs, x1 = conv_tail_inputs(torch, B, T1, C, bf16, has_ln=False, seed=B)
+        x_cf = x1.transpose(1, 2).contiguous()   # the port's channels-first layout
+
+        def cudnn_path():
+            x = x_cf
+            for conv in convs[1:]:
+                x = layers.gelu(w2v._conv1d(conv, x, 2))
+            return x
+
+        (bound_ms, bound_by), flops = conv_tail_bound(B, T1, C, bf16)
+        ms = cuda_ms(lambda: ct.conv_tail(convs, x1, has_ln=False), iters, warmup=1)
+        tail["timing"][B] = {
+            "ms": ms, "tflop_per_s": flops / ms / 1e9,
+            "plain_ms": cuda_ms(lambda: ct.conv_tail_plain(convs, x1, has_ln=False),
+                                max(1, iters // 3), warmup=1),
+            "cudnn_path_ms": cuda_ms(cudnn_path, iters, warmup=1),
+            "bound_ms": bound_ms, "bound_by": bound_by, "tflop": flops / 1e12}
+        del convs, x1, x_cf
+    emit({"phase": "kernel", "name": "conv_tail", "C": C, "T1": T1, "tol": BF16_TOL["conv_tail"],
+          "f32_tol": KERNEL_TOL, **tail})
+    torch.cuda.empty_cache()
+
+    # 3c. A3: masked flash attention at the flagship's attention sites
+    attn = {"max_abs_err": {}, "timing": {}}
+    for site, (Sq, Skv, D, H) in ATTENTION_SITES.items():
+        for B, dtype, tol in ((4, bf16, BF16_TOL["attention"]),
+                              (128, bf16, BF16_TOL["attention"]),
+                              (4, torch.float32, KERNEL_TOL)):
+            q, k, v, mask = attention_inputs(torch, B, Sq, Skv, D, dtype, seed=Sq + Skv)
+            got = fa.flash_attention(q, k, v, mask, num_heads=H)
+            want = fa.flash_attention_plain(q, k, v, mask, num_heads=H)
+            torch.cuda.synchronize()
+            label = f"{site} {'bf16' if dtype == bf16 else 'f32'} B={B}"
+            attn["max_abs_err"][label] = check_close(f"flash_attention {label}", got, want, tol)
+        B = 128
+        q, k, v, mask = attention_inputs(torch, B, Sq, Skv, D, bf16, seed=Sq + Skv)
+        heads = lambda t: t.view(B, t.shape[1], H, D // H).transpose(1, 2)
+        qh, kh, vh = heads(q), heads(k), heads(v)
+        keep = (mask != 0)[:, None, None, :]
+        bound_ms, bound_by = attention_bound(B, Sq, Skv, D, bf16)
+        attn["timing"][site] = {
+            "B": B, "Sq": Sq, "Skv": Skv, "D": D, "heads": H,
+            "ms": cuda_ms(lambda: fa.flash_attention(q, k, v, mask, num_heads=H), 20),
+            "plain_ms": cuda_ms(lambda: fa.flash_attention_plain(q, k, v, mask, num_heads=H), 5),
+            "library_ms": cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=keep), 20),
+            "bound_ms": bound_ms, "bound_by": bound_by}
+    emit({"phase": "kernel", "name": "flash_attention", "tol": BF16_TOL["attention"],
+          "f32_tol": KERNEL_TOL, **attn})
+
+    # 3d. A2: streaming attentive-stats pooling at the pooling sites
+    pool = {"max_abs_err": {}, "timing": {}}
+    for site, (S, D) in POOLING_SITES.items():
+        for B, dtype, tol in ((4, bf16, BF16_TOL["attention"]),
+                              (128, bf16, BF16_TOL["attention"]),
+                              (4, torch.float32, KERNEL_TOL)):
+            params, x, mask = pooling_inputs(torch, B, S, D, dtype, seed=S)
+            got = ap.attentive_stats_pooling(params, x, mask)
+            want = ap.attentive_stats_pooling_plain(params, x, mask)
+            torch.cuda.synchronize()
+            label = f"{site} {'bf16' if dtype == bf16 else 'f32'} B={B}"
+            pool["max_abs_err"][label] = check_close(f"attentive_pooling {label}", got, want, tol)
+        B = 128
+        params, x, mask = pooling_inputs(torch, B, S, D, bf16, seed=S)
+        bound_ms, bound_by = pooling_bound(B, S, D, bf16)
+        pool["timing"][site] = {
+            "B": B, "S": S, "D": D,
+            "ms": cuda_ms(lambda: ap.attentive_stats_pooling(params, x, mask), 20),
+            "plain_ms": cuda_ms(lambda: ap.attentive_stats_pooling_plain(params, x, mask), 10),
+            "bound_ms": bound_ms, "bound_by": bound_by}
+    emit({"phase": "kernel", "name": "attentive_pooling", "tol": BF16_TOL["attention"],
+          "f32_tol": KERNEL_TOL, **pool})
 
     # 4. small model on the card against the CPU
     rng = np.random.default_rng(7)
@@ -209,27 +444,28 @@ def main() -> int:
                                      f"{diffs[field]} over tolerance {tol}")
         emit({"phase": "agree", "dtype": dtype, "tol": tol, "max_abs_diff": diffs})
 
-    # 5. the flagship eval forward
+    launches = dict.fromkeys(KERNEL_NAMES, 0)
+
+    # 5a. the flagship eval forward (A1)
     cfg = ModelConfig(compute_dtype="bfloat16")
     params = mdl.init_model(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
     torch.cuda.synchronize()
     path = {}
-    launches = 0
     for B, requests in ((4, REQUESTS_B4), (128, REQUESTS_B128)):
-        batch = example_batch(B, T=4 * 16000, S=32, vocab=cfg.text.vocab_size)
+        batch = example_batch(B, T=CLIP_SAMPLES, S=TEXT_TOKENS, vocab=cfg.text.vocab_size)
         torch.cuda.reset_peak_memory_stats()
-        rs.residual_stack.launches = 0
         times = []
+        reset_counts(wrappers)
         for _ in range(requests):
             t0 = time.perf_counter()
             out = mdl.model_forward(params, cfg, batch)
             logits = out.logits.cpu()
             times.append(time.perf_counter() - t0)
-        count = rs.residual_stack.launches
-        if count != requests:
-            raise AssertionError(f"B={B}: residual_stack launched {count} times "
-                                 f"in {requests} forwards")
-        launches += count
+        count = counts(wrappers)
+        if count["residual_stack"] != requests:
+            raise AssertionError(f"B={B}: residual_stack launched {count['residual_stack']} "
+                                 f"times in {requests} forwards")
+        launches["residual_stack"] += count["residual_stack"]
         if tuple(logits.shape) != (B, cfg.num_labels) or not torch.isfinite(logits).all():
             raise AssertionError(f"B={B}: logits {tuple(logits.shape)} not finite "
                                  f"({B}, {cfg.num_labels})")
@@ -241,19 +477,126 @@ def main() -> int:
         path[B] = {"requests": requests, "first_ms": 1e3 * times[0], "ms": ms,
                    "utt_per_s": B / (ms / 1e3),
                    "max_memory_allocated": torch.cuda.max_memory_allocated(),
-                   "residual_stack_launches": count}
-        emit({"phase": "path", "B": B, "seconds": 4.0, "text_tokens": 32,
-              "card": smi, **path[B]})
+                   "launches": count}
+        emit({"phase": "path", "path": "model_forward", "B": B, "seconds": 4.0,
+              "text_tokens": TEXT_TOKENS, "card": smi, **path[B]})
 
+    # 5b. feature_encoder(allow_fused=True) (A4), wav2vec2-base width
+    w2v_params = mdl.cast_floating(params["audio_backbone"], bf16)
+    del params
+    torch.cuda.empty_cache()
+    fused_path = {}
+    for B, calls in ((4, 5), (128, 3)):
+        batch = example_batch(B, T=CLIP_SAMPLES, S=TEXT_TOKENS, vocab=cfg.text.vocab_size)
+        mask = torch.from_numpy(batch["audio_mask"]).cuda()
+        wave = w2v.normalize_waveform(torch.from_numpy(batch["audio"]).cuda(), mask).to(bf16)
+        unfused, unfused_m = w2v.feature_encoder(w2v_params, cfg.audio, wave, mask)
+        torch.cuda.synchronize()
+        reset_counts(wrappers)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            feats, frame_mask = w2v.feature_encoder(w2v_params, cfg.audio, wave, mask,
+                                                    allow_fused=True)
+        end.record()
+        torch.cuda.synchronize()
+        count = counts(wrappers)
+        if count["conv_tail"] != calls:
+            raise AssertionError(f"feature_encoder B={B}: conv_tail launched "
+                                 f"{count['conv_tail']} times in {calls} calls")
+        launches["conv_tail"] += count["conv_tail"]
+        T7 = cfg.audio.feat_extract_output_lengths(CLIP_SAMPLES)
+        if tuple(feats.shape) != (B, T7, cfg.audio.conv_dim[-1]) or feats.dtype != bf16:
+            raise AssertionError(f"feature_encoder B={B}: {tuple(feats.shape)} {feats.dtype}")
+        if not torch.isfinite(feats.float()).all():
+            raise AssertionError(f"feature_encoder B={B}: features not finite")
+        if not torch.equal(frame_mask, unfused_m):
+            raise AssertionError(f"feature_encoder B={B}: frame masks differ")
+        err = check_close(f"feature_encoder fused vs unfused B={B}", feats, unfused,
+                          BF16_TOL["conv_tail"])
+        x0 = torch.empty(B, cfg.audio.conv_dim[0], T1, dtype=bf16, device="cuda")
+        fused_path[B] = {
+            "calls": calls, "launches": count, "max_abs_diff_vs_unfused": err,
+            "tol": BF16_TOL["conv_tail"], "unfused_range": [float(unfused.min()),
+                                                            float(unfused.max())],
+            "fused_ms": start.elapsed_time(end) / calls,
+            "unfused_ms": cuda_ms(lambda: w2v.feature_encoder(w2v_params, cfg.audio,
+                                                              wave, mask), calls, warmup=1),
+            "transpose_ms": cuda_ms(lambda: x0.transpose(1, 2).contiguous(), 10)}
+        emit({"phase": "path", "path": "feature_encoder(allow_fused=True)", "B": B,
+              "seconds": 4.0, "card": smi, **fused_path[B]})
+        del feats, unfused, x0
+    del w2v_params
+    torch.cuda.empty_cache()
+
+    # 5c. flash_attention and attentive_stats_pooling (A3, A2) through their
+    # own functions, the only way the JAX package reaches them
+    for B in (4, 128):
+        inputs = {site: attention_inputs(torch, B, Sq, Skv, D, bf16, seed=B + Sq)
+                  for site, (Sq, Skv, D, _) in ATTENTION_SITES.items()}
+        pool_inputs = {site: pooling_inputs(torch, B, S, D, bf16, seed=B + S)
+                       for site, (S, D) in POOLING_SITES.items()}
+        torch.cuda.synchronize()
+        reset_counts(wrappers)
+        outs = {site: fa.flash_attention(*inputs[site], num_heads=ATTENTION_SITES[site][3])
+                for site in ATTENTION_SITES}
+        pooled = {site: ap.attentive_stats_pooling(*pool_inputs[site])
+                  for site in POOLING_SITES}
+        torch.cuda.synchronize()
+        count = counts(wrappers)
+        if (count["flash_attention"] != len(ATTENTION_SITES)
+                or count["attentive_pooling"] != len(POOLING_SITES)):
+            raise AssertionError(f"B={B}: launches {count} for {len(ATTENTION_SITES)} "
+                                 f"attention and {len(POOLING_SITES)} pooling calls")
+        launches["flash_attention"] += count["flash_attention"]
+        launches["attentive_pooling"] += count["attentive_pooling"]
+        for site, o in outs.items():
+            if tuple(o.shape) != tuple(inputs[site][0].shape) or not torch.isfinite(o.float()).all():
+                raise AssertionError(f"flash_attention {site} B={B}: {tuple(o.shape)} not finite")
+        for site, o in pooled.items():
+            if (tuple(o.shape) != (B, 2 * POOLING_SITES[site][1])
+                    or not torch.isfinite(o.float()).all()):
+                raise AssertionError(f"attentive_pooling {site} B={B}: {tuple(o.shape)} not finite")
+        emit({"phase": "path", "path": "flash_attention + attentive_stats_pooling", "B": B,
+              "launches": count, "attention_sites": list(ATTENTION_SITES),
+              "pooling_sites": list(POOLING_SITES)})
+
+    for kname, n in launches.items():
+        if n < 1:
+            raise AssertionError(f"{kname} was launched no time on its path")
     t4 = timing[4]
-    emit({"kernels": [{
-        "name": "residual_stack", "route": "cuda",
-        "source": "multilingual_multimodal_speech_emotion_recognition_tpu_torch/csrc/residual_stack.cu",
-        "replaces": "multilingual_multimodal_speech_emotion_recognition_tpu/ops/pallas_kernels.py:114",
-        "launches": launches, "max_abs_err": max(errs.values()), "tol": KERNEL_TOL,
-        "ms": t4["ms"], "kernel_ms": t4["ms"], "plain_ms": t4["plain_ms"],
-        "bound_ms": t4["bound_ms"], "bound_by": t4["bound_by"], "library_ms": None,
-        "B": 4, "at_B128": timing[128]}]})
+    tail128 = tail["timing"][128]
+    w2v_site = attn["timing"]["wav2vec2_self"]
+    pool_a = pool["timing"]["pool_a"]
+    emit({"kernels": [
+        {"name": "residual_stack", "route": "cuda", "source": SOURCE.format("residual_stack"),
+         "replaces": REPLACES.format(114), "launches": launches["residual_stack"],
+         "max_abs_err": max(errs.values()), "tol": KERNEL_TOL,
+         "ms": t4["ms"], "kernel_ms": t4["ms"], "plain_ms": t4["plain_ms"],
+         "bound_ms": t4["bound_ms"], "bound_by": t4["bound_by"], "library_ms": None,
+         "B": 4, "at_B128": timing[128]},
+        {"name": "conv_tail", "route": "cuda", "source": SOURCE.format("conv_tail"),
+         "replaces": REPLACES.format(467), "launches": launches["conv_tail"],
+         "max_abs_err": max(tail["max_abs_err"].values()), "tol": BF16_TOL["conv_tail"],
+         "ms": tail128["ms"], "plain_ms": tail128["plain_ms"],
+         "bound_ms": tail128["bound_ms"], "bound_by": tail128["bound_by"],
+         "library_ms": None, "cudnn_path_ms": tail128["cudnn_path_ms"],
+         "B": 128, "at_B4": tail["timing"][4]},
+        {"name": "flash_attention", "route": "cuda", "source": SOURCE.format("flash_attention"),
+         "replaces": REPLACES.format(295), "launches": launches["flash_attention"],
+         "max_abs_err": max(attn["max_abs_err"].values()), "tol": BF16_TOL["attention"],
+         "ms": w2v_site["ms"], "plain_ms": w2v_site["plain_ms"],
+         "bound_ms": w2v_site["bound_ms"], "bound_by": w2v_site["bound_by"],
+         "library_ms": w2v_site["library_ms"], "B": 128, "site": "wav2vec2_self",
+         "sites": attn["timing"]},
+        {"name": "attentive_pooling", "route": "cuda",
+         "source": SOURCE.format("attentive_pooling"), "replaces": REPLACES.format(208),
+         "launches": launches["attentive_pooling"],
+         "max_abs_err": max(pool["max_abs_err"].values()), "tol": BF16_TOL["attention"],
+         "ms": pool_a["ms"], "plain_ms": pool_a["plain_ms"],
+         "bound_ms": pool_a["bound_ms"], "bound_by": pool_a["bound_by"],
+         "library_ms": None, "B": 128, "site": "pool_a", "sites": pool["timing"]},
+    ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import Wav2Vec2Config
+from ..ops import conv_tail
 from . import layers
 
 Tensor = torch.Tensor
@@ -115,21 +116,32 @@ def masked_group_norm_per_channel(p: dict, x: Tensor, frame_mask: Tensor,
 def feature_encoder(params: dict, cfg: Wav2Vec2Config, wave: Tensor,
                     sample_mask: Tensor, *,
                     allow_fused: bool = False) -> Tuple[Tensor, Tensor]:
-    """Strided conv stack: [B, T] -> ([B, T7, C], frame_mask [B, T7])."""
-    if allow_fused:
-        raise NotImplementedError(
-            "the fused conv-tail kernel (A4, conv_tail_pallas) is not ported "
-            "yet; see ROADMAP Queue B")
-    x = wave[:, None, :]
+    """Strided conv stack: [B, T] -> ([B, T7, C], frame_mask [B, T7]).
+
+    `allow_fused=True` runs conv layers 1-6 through the fused tail
+    (ops/conv_tail.conv_tail) when the input is bf16 and the stack has the
+    tail's geometry (`conv_tail_supported`); otherwise, and by default, the
+    layers run one by one. Conv 0 and its masked group norm run either
+    way; its output is transposed once to the tail's [B, T1, C]."""
+    convs = params["convs"]
+    use_fused = (allow_fused and wave.dtype == torch.bfloat16
+                 and conv_tail.conv_tail_supported(cfg.conv_kernel, cfg.conv_stride,
+                                                   cfg.conv_dim))
+    x = _conv1d(convs[0], wave[:, None, :], cfg.conv_stride[0])
     lengths = sample_mask.to(torch.int32).sum(-1)
-    for i, conv in enumerate(params["convs"]):
-        x = _conv1d(conv, x, cfg.conv_stride[i])
-        lengths = (lengths - cfg.conv_kernel[i]) // cfg.conv_stride[i] + 1
-        if i == 0:
-            fm = torch.arange(x.shape[-1], device=x.device)[None, :] < lengths[:, None]
-            x = masked_group_norm_per_channel(params["group_norm"], x, fm)
-        x = layers.gelu(x)
-    x = x.transpose(1, 2)
+    lengths = (lengths - cfg.conv_kernel[0]) // cfg.conv_stride[0] + 1
+    fm = torch.arange(x.shape[-1], device=x.device)[None, :] < lengths[:, None]
+    x = layers.gelu(masked_group_norm_per_channel(params["group_norm"], x, fm))
+    if use_fused:
+        # the port's extractor is the group-norm one: no per-layer LN
+        x = conv_tail.conv_tail(convs, x.transpose(1, 2).contiguous(), has_ln=False,
+                                ln_eps=cfg.layer_norm_eps)
+    else:
+        for conv, stride in zip(convs[1:], cfg.conv_stride[1:]):
+            x = layers.gelu(_conv1d(conv, x, stride))
+        x = x.transpose(1, 2)
+    for kernel, stride in zip(cfg.conv_kernel[1:], cfg.conv_stride[1:]):
+        lengths = (lengths - kernel) // stride + 1
     frame_mask = (torch.arange(x.shape[1], device=x.device)[None, :]
                   < lengths[:, None]).to(x.dtype)
     return x, frame_mask
@@ -151,6 +163,7 @@ def wav2vec2_encode(params: dict, cfg: Wav2Vec2Config, wave: Tensor,
     check_supported(cfg)
     if normalize:
         wave = normalize_waveform(wave, sample_mask).to(wave.dtype)
+    # the unfused extractor, as the JAX package's wav2vec2_encode runs it
     feats, frame_mask = feature_encoder(params, cfg, wave, sample_mask)
     h = layers.layer_norm(params["feat_proj"]["ln"], feats, eps=cfg.layer_norm_eps)
     h = layers.linear(params["feat_proj"]["proj"], h)

@@ -16,6 +16,9 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import Dict, Iterable, List, Sequence
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -37,29 +40,74 @@ def nvcc() -> str:
     return found
 
 
-def build(name: str) -> Path:
-    """Compile csrc/<name>.cu unless its library is already built. The
-    compiler's output (ptxas register and shared-memory report included)
-    goes to build/kernels/<name>.log."""
+def library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    lib = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                          capture_output=True, text=True, check=False)
-    (BUILD_DIR / f"{name}.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on csrc/{name}.cu "
-                           f"(exit {proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, lib)
-    return lib
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of csrc/<name>.cu, built on first use."""
+def build_all(names: Iterable[str]) -> List[Path]:
+    """Compile every csrc/<name>.cu whose library is not built yet, one
+    nvcc process per source, all started together. The compiler's output
+    (ptxas register and shared-memory report included) goes to
+    build/kernels/<name>.log."""
+    names = list(names)
+    running = []
+    for name in names:
+        lib = library_path(name)
+        if lib.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        proc = subprocess.Popen([nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                                 str(CSRC / f"{name}.cu")],
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                text=True)
+        running.append((name, proc, tmp, lib))
+    failed = []
+    for name, proc, tmp, lib in running:
+        out, err = proc.communicate()
+        (BUILD_DIR / f"{name}.log").write_text(out + err)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on csrc/{name}.cu "
+                          f"(exit {proc.returncode}):\n{err}")
+        else:
+            os.replace(tmp, lib)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return [library_path(name) for name in names]
+
+
+def build(name: str) -> Path:
+    """Compile csrc/<name>.cu unless its library is already built."""
+    return build_all([name])[0]
+
+
+def load(name: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:
+    """The loaded library of csrc/<name>.cu, built on first use. Each entry
+    point in `signatures` (its ctypes argument types) returns a CUDA error
+    code, which `<name>_error_string` turns into text."""
     if name not in _loaded:
-        _loaded[name] = ctypes.CDLL(str(build(name)))
+        lib = ctypes.CDLL(str(build(name)))
+        for entry, argtypes in signatures.items():
+            fn = getattr(lib, entry)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+        describe = getattr(lib, f"{name}_error_string")
+        describe.argtypes = [ctypes.c_int]
+        describe.restype = ctypes.c_char_p
+        _loaded[name] = lib
     return _loaded[name]
+
+
+def launch(name: str, signatures: Dict[str, Sequence], entry: str,
+           device: torch.device, *args) -> None:
+    """Call `entry` of csrc/<name>.cu with `args` and the current stream of
+    `device` (always the last argument); raise with CUDA's message when the
+    launch fails. The kernel runs asynchronously."""
+    lib = load(name, signatures)
+    with torch.cuda.device(device):
+        err = getattr(lib, entry)(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{entry} kernel launch failed: "
+                           + getattr(lib, f"{name}_error_string")(err).decode())

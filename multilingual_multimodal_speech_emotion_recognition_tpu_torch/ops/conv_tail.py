@@ -1,0 +1,166 @@
+"""The wav2vec2 conv-extractor tail (conv layers 1-6): a hand-written CUDA
+kernel (csrc/conv_tail.cu) and its plain PyTorch version.
+
+Replaces the TPU kernel `conv_tail_pallas`
+(multilingual_multimodal_speech_emotion_recognition_tpu/ops/pallas_kernels.py:467,
+body `_conv_tail_kernel` :423). Layers 1-6 of the HF wav2vec2 / HuBERT /
+WavLM feature encoder have kernels (3, 3, 3, 3, 2, 2), stride 2 and C
+channels in and out. Per layer, in the working type of x1 (bf16 or f32):
+the product in f32 from operands rounded to the working type, rounded
+once; + bias; optionally a per-frame LayerNorm over C with f32 moments;
+GELU (`layers.gelu`: tanh approximation in bf16, erf in f32).
+
+The two k=3 products of the TPU kernel are summed in f32 before their one
+cast (pallas_kernels.py:432-438), so each layer rounds once, as a
+convolution does; the comment at pallas_kernels.py:384-387 that says the
+k=3 layers round twice does not describe that code. This module follows
+the code.
+
+Layout: [B, T, C] in and out, like the JAX function. The kernel reads each
+layer as one GEMM over the overlapping-row view of its input (see the
+source). `conv_tail` takes the plain version for a tensor on the CPU only;
+for a CUDA tensor it launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import List, Sequence
+
+import torch
+
+from ..models import layers
+from . import _build
+
+Tensor = torch.Tensor
+
+TAIL_KERNELS = (3, 3, 3, 3, 2, 2)
+_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def conv_tail_supported(conv_kernel: Sequence[int], conv_stride: Sequence[int],
+                        conv_dim: Sequence[int]) -> bool:
+    """True when the conv stack's tail has the fused geometry: kernels
+    (K0, 3, 3, 3, 3, 2, 2), strides (S0, 2, ..., 2) and one channel count,
+    a multiple of 128 (the HF wav2vec2 / HuBERT / WavLM base and large
+    extractors). The port's copy of the JAX package's
+    `conv_tail_supported` (pallas_kernels.py:457)."""
+    return (tuple(conv_kernel[1:]) == TAIL_KERNELS
+            and all(s == 2 for s in conv_stride[1:])
+            and len(set(conv_dim)) == 1
+            and conv_dim[0] % 128 == 0)
+
+
+def tail_lengths(T1: int) -> List[int]:
+    """Frames after each of the six layers: exact conv arithmetic."""
+    out = []
+    for k in TAIL_KERNELS:
+        T1 = (T1 - k) // 2 + 1
+        out.append(T1)
+    return out
+
+
+def _packed_kernels(convs: list, dtype: torch.dtype) -> List[Tensor]:
+    """Each tail layer's kernel, stored [C_out, C_in, K], as the [K*C_in,
+    C_out] matrix whose row k*C_in + c multiplies x[2t + k, c]."""
+    return [c["kernel"].to(dtype).permute(2, 1, 0).reshape(-1, c["kernel"].shape[0])
+            for c in convs[1:]]
+
+
+def _check_convs(convs: list, C: int, has_ln: bool) -> None:
+    if len(convs) != 7:
+        raise ValueError(f"conv_tail: convs has {len(convs)} layers; the "
+                         "tail needs the extractor's 7 (layers 1-6 are fused)")
+    for i, (conv, k) in enumerate(zip(convs[1:], TAIL_KERNELS), start=1):
+        if tuple(conv["kernel"].shape) != (C, C, k):
+            raise ValueError(f"conv_tail: convs[{i}] kernel "
+                             f"{tuple(conv['kernel'].shape)} is not [{C}, {C}, {k}]")
+        if has_ln and "ln" not in conv:
+            raise ValueError(f"conv_tail: has_ln=True but convs[{i}] has no 'ln'")
+
+
+def conv_tail_plain(convs: list, x1: Tensor, *, has_ln: bool,
+                    ln_eps: float = 1e-5) -> Tensor:
+    """Layers 1-6 over x1 [B, T1, C] -> [B, T7, C], as the kernel computes
+    them: each product in f32 from operands in x1.dtype, rounded once."""
+    B, _, C = x1.shape
+    _check_convs(convs, C, has_ln)
+    x = x1
+    for conv, k, w in zip(convs[1:], TAIL_KERNELS, _packed_kernels(convs, x1.dtype)):
+        x = x.contiguous()
+        T = x.shape[1]
+        T_out = (T - k) // 2 + 1
+        window = x.as_strided((B, T_out, k * C), (T * C, 2 * C, 1))
+        z = torch.matmul(window.float(), w.float()).to(x1.dtype)
+        if "bias" in conv:
+            z = z + conv["bias"].to(x1.dtype)
+        if has_ln:
+            z = layers.layer_norm(conv["ln"], z, eps=ln_eps)
+        x = layers.gelu(z)
+    return x
+
+
+_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+_SIGNATURES = {"conv_tail_bf16": _ARGTYPES, "conv_tail_f32": _ARGTYPES}
+
+
+def build() -> None:
+    """Compile and load the kernel now instead of at its first launch."""
+    _build.load("conv_tail", _SIGNATURES)
+
+
+def conv_tail(convs: list, x1: Tensor, *, has_ln: bool,
+              ln_eps: float = 1e-5) -> Tensor:
+    """Conv layers 1-6 over the layer-0 output x1 [B, T1, C] -> [B, T7, C].
+    convs: params["convs"] (7 layers, kernels [C_out, C_in, K], optional
+    "bias" and "ln"). A CPU tensor takes the plain version; a CUDA tensor
+    launches the kernel (which packs the weights itself), or raises on what
+    the kernel does not take."""
+    if x1.dim() != 3:
+        raise ValueError(f"conv_tail: x1 {tuple(x1.shape)} is not [B, T1, C]")
+    B, T1, C = x1.shape
+    lengths = tail_lengths(T1)
+    if lengths[-1] < 1:
+        raise ValueError(f"conv_tail: T1={T1} frames are too few for the "
+                         "six stride-2 layers")
+    if x1.device.type == "cpu":
+        return conv_tail_plain(convs, x1, has_ln=has_ln, ln_eps=ln_eps)
+    if x1.device.type != "cuda":
+        raise ValueError(f"conv_tail: no kernel for device {x1.device}")
+    _check_convs(convs, C, has_ln)
+    if (x1.dtype not in _DTYPES or not x1.is_contiguous()
+            or x1.data_ptr() % 16 != 0):
+        raise ValueError(f"conv_tail: the kernel takes a contiguous, 16-byte "
+                         f"aligned bf16 or f32 x1; got {x1.dtype} "
+                         f"(contiguous={x1.is_contiguous()})")
+    if C % 128 != 0 or not 1 <= B <= 65535:
+        raise ValueError(f"conv_tail: the kernel takes C % 128 == 0 and "
+                         f"1 <= B <= 65535, got C={C}, B={B}")
+    for conv in convs[1:]:
+        for t in (conv["kernel"], conv.get("bias"),
+                  *(conv["ln"].values() if has_ln else ())):
+            if t is not None and t.device != x1.device:
+                raise ValueError(f"conv_tail: parameters on {t.device}, "
+                                 f"x1 on {x1.device}")
+    dtype = x1.dtype
+    w = torch.cat(_packed_kernels(convs, dtype))
+    bias = torch.stack([c["bias"].to(dtype) if "bias" in c
+                        else torch.zeros(C, dtype=dtype, device=x1.device)
+                        for c in convs[1:]])
+    if has_ln:
+        ln_s = torch.stack([c["ln"]["scale"].float() for c in convs[1:]])
+        ln_b = torch.stack([c["ln"]["bias"].float() for c in convs[1:]])
+    else:
+        ln_s = ln_b = torch.zeros((6, C), dtype=torch.float32, device=x1.device)
+    scratch = torch.empty(B * (lengths[0] + lengths[1]) * C, dtype=dtype,
+                          device=x1.device)
+    out = torch.empty((B, lengths[-1], C), dtype=dtype, device=x1.device)
+    entry = "conv_tail_bf16" if dtype == torch.bfloat16 else "conv_tail_f32"
+    _build.launch("conv_tail", _SIGNATURES, entry, x1.device, x1.data_ptr(),
+                  w.data_ptr(), bias.data_ptr(), ln_s.data_ptr(), ln_b.data_ptr(),
+                  scratch.data_ptr(), out.data_ptr(), B, T1, C, int(has_ln), ln_eps)
+    conv_tail.launches += 1
+    return out
+
+
+conv_tail.launches = 0

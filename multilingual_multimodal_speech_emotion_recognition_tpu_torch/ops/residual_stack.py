@@ -48,19 +48,13 @@ def residual_stack_plain(stacked: dict, x: Tensor) -> Tensor:
     return h
 
 
-def _library() -> ctypes.CDLL:
-    lib = _build.load("residual_stack")
-    lib.residual_stack_f32.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [
-        ctypes.c_void_p]
-    lib.residual_stack_f32.restype = ctypes.c_int
-    lib.residual_stack_error_string.argtypes = [ctypes.c_int]
-    lib.residual_stack_error_string.restype = ctypes.c_char_p
-    return lib
+_SIGNATURES = {"residual_stack_f32": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3
+               + [ctypes.c_void_p]}
 
 
 def build() -> None:
     """Compile and load the kernel now instead of at its first launch."""
-    _library()
+    _build.load("residual_stack", _SIGNATURES)
 
 
 def residual_stack(stacked: dict, x: Tensor) -> Tensor:
@@ -90,14 +84,8 @@ def residual_stack(stacked: dict, x: Tensor) -> Tensor:
                 f"{x.device} of shape {shape}; got {tuple(t.shape)} "
                 f"{t.dtype} on {t.device} (contiguous={t.is_contiguous()})")
     out = torch.empty_like(x)
-    lib = _library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.residual_stack_f32(*(t.data_ptr() for t in args),
-                                     out.data_ptr(), x.shape[0], L, D, stream)
-    if err != 0:
-        raise RuntimeError("residual_stack kernel launch failed: "
-                           + lib.residual_stack_error_string(err).decode())
+    _build.launch("residual_stack", _SIGNATURES, "residual_stack_f32", x.device,
+                  *(t.data_ptr() for t in args), out.data_ptr(), x.shape[0], L, D)
     residual_stack.launches += 1
     return out
 

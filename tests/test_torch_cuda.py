@@ -2,7 +2,9 @@
 
 Marked `cuda`: each test skips where torch sees no CUDA device. On a GPU
 machine with nvcc: python -m pytest tests/test_torch_cuda.py -m cuda -q
-Tolerance 1e-4: the kernel sums in another order over K and L layers.
+Tolerance 1e-4 in f32: the kernels sum in another order. In bf16 the
+JAX package's bounds: 4e-2 for the conv tail, 3e-2 for attention and
+pooling (one output rounding, or a few across the six conv layers).
 """
 
 import pytest
@@ -11,9 +13,11 @@ import torch
 from multilingual_multimodal_speech_emotion_recognition_tpu_torch.models import (
     layers as tl, classifier as tclf)
 from multilingual_multimodal_speech_emotion_recognition_tpu_torch.ops import (
+    attentive_pooling as ap, conv_tail as ct, flash_attention as fa,
     residual_stack as rs)
 
 TOL = 1e-4
+BF16_TOL = {"conv_tail": 4e-2, "attention": 3e-2}
 
 
 @pytest.fixture
@@ -53,3 +57,114 @@ def test_residual_stack_kernel_rejects_what_it_does_not_take(cuda):
         rs.residual_stack(stacked, x.double())
     with pytest.raises(ValueError, match="contiguous"):
         rs.residual_stack(stacked, x.t().contiguous().t())
+
+
+def _tail_convs(device, C, *, has_ln, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    rnd = lambda *shape: torch.randn(*shape, device=device, generator=g)
+    convs = [{"kernel": rnd(C, 1, 10)}]
+    for K in ct.TAIL_KERNELS:
+        conv = {"kernel": rnd(C, C, K) * (2.0 / (K * C)) ** 0.5, "bias": 0.1 * rnd(C)}
+        if has_ln:
+            conv["ln"] = {"scale": 1 + 0.1 * rnd(C), "bias": 0.1 * rnd(C)}
+        convs.append(conv)
+    return convs, rnd(2, 3199, C)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("has_ln", [False, True], ids=["gelu", "ln-gelu"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_conv_tail_kernel_matches_plain(cuda, dtype, has_ln):
+    convs, x1 = _tail_convs(cuda, 256, has_ln=has_ln, seed=3)
+    convs = [{k: (v.to(dtype) if k != "ln" else v) for k, v in c.items()} for c in convs]
+    x1 = x1.to(dtype)
+    before = ct.conv_tail.launches
+    got = ct.conv_tail(convs, x1, has_ln=has_ln)
+    want = ct.conv_tail_plain(convs, x1, has_ln=has_ln)
+    torch.cuda.synchronize()
+    assert ct.conv_tail.launches == before + 1
+    tol = TOL if dtype == torch.float32 else BF16_TOL["conv_tail"]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_conv_tail_kernel_rejects_what_it_does_not_take(cuda):
+    convs, x1 = _tail_convs(cuda, 128, has_ln=False, seed=0)
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        ct.conv_tail(convs, x1.half(), has_ln=False)
+    narrow, x64 = _tail_convs(cuda, 64, has_ln=False, seed=0)
+    with pytest.raises(ValueError, match="C % 128"):
+        ct.conv_tail(narrow, x64, has_ln=False)
+    with pytest.raises(ValueError, match="no 'ln'"):
+        ct.conv_tail(convs, x1, has_ln=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("Sq,Skv,D,H", [(199, 199, 768, 12), (32, 199, 256, 8),
+                                        (70, 33, 64, 8), (5, 130, 256, 2)])
+def test_flash_attention_kernel_matches_plain(cuda, dtype, Sq, Skv, D, H):
+    g = torch.Generator(device=cuda).manual_seed(Sq + Skv)
+    q = torch.randn(3, Sq, D, device=cuda, generator=g).to(dtype)
+    k, v = (torch.randn(3, Skv, D, device=cuda, generator=g).to(dtype) for _ in range(2))
+    mask = torch.ones(3, Skv, device=cuda)
+    mask[0, Skv // 2:] = 0
+    mask[2, ::3] = 0
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, mask, num_heads=H)
+    want = fa.flash_attention_plain(q, k, v, mask, num_heads=H)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    tol = TOL if dtype == torch.float32 else BF16_TOL["attention"]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_rejects_what_it_does_not_take(cuda):
+    q = torch.randn(2, 9, 32, device=cuda)
+    mask = torch.ones(2, 9, device=cuda)
+    with pytest.raises(ValueError, match="head width"):
+        fa.flash_attention(q, q, q, mask, num_heads=8)        # Dh 4
+    with pytest.raises(ValueError, match="one dtype"):
+        fa.flash_attention(q, q.bfloat16(), q, mask, num_heads=2)
+    with pytest.raises(ValueError, match="one dtype"):
+        fa.flash_attention(q.half(), q.half(), q.half(), mask, num_heads=2)
+
+
+def _pool_params(device, D, H, dtype, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    rnd = lambda *shape: torch.randn(*shape, device=device, generator=g)
+    return {"w1": {"kernel": (rnd(D, H) / D ** 0.5).to(dtype), "bias": (0.1 * rnd(H)).to(dtype)},
+            "w2": {"kernel": (rnd(H, 1) / H ** 0.5).to(dtype), "bias": (0.1 * rnd(1)).to(dtype)}}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("S,D,H", [(199, 768, 128), (32, 768, 128), (45, 64, 32), (7, 1536, 256)])
+def test_attentive_pooling_kernel_matches_plain(cuda, dtype, S, D, H):
+    params = _pool_params(cuda, D, H, dtype, seed=S)
+    x = torch.randn(5, S, D, device=cuda).to(dtype)
+    mask = torch.ones(5, S, device=cuda)
+    mask[1, S // 3:] = 0
+    mask[3] = 0                                    # a row with no valid frame
+    before = ap.attentive_stats_pooling.launches
+    got = ap.attentive_stats_pooling(params, x, mask)
+    want = ap.attentive_stats_pooling_plain(params, x, mask)
+    torch.cuda.synchronize()
+    assert ap.attentive_stats_pooling.launches == before + 1
+    tol = TOL if dtype == torch.float32 else BF16_TOL["attention"]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_attentive_pooling_kernel_rejects_what_it_does_not_take(cuda):
+    x = torch.randn(2, 10, 64, device=cuda)
+    mask = torch.ones(2, 10, device=cuda)
+    with pytest.raises(ValueError, match="H in"):
+        ap.attentive_stats_pooling(_pool_params(cuda, 64, 100, torch.float32, 0), x, mask)
+    with pytest.raises(ValueError, match="D <="):
+        ap.attentive_stats_pooling(_pool_params(cuda, 1540, 128, torch.float32, 0),
+                                   torch.randn(2, 10, 1540, device=cuda), mask)
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        ap.attentive_stats_pooling(_pool_params(cuda, 64, 128, torch.float32, 0),
+                                   x.half(), mask)
