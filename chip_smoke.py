@@ -8,7 +8,10 @@ Phases, one JSON line each:
   2. build    nvcc builds every kernel from csrc/ (sm_90a), one process per
               source, all started together
   3. kernel   each kernel against its plain PyTorch version on the card, at
-              its paths' shapes, with times and the card's bound
+              its paths' shapes, with times, the card's bound, the share of
+              it reached (ms / bound_ms), TFLOP/s where products bound it,
+              and a library call's time where one PyTorch call (SDPA) or
+              the port's cuDNN layers compute the same function
   4. agree    a small model on the card against the same model on the CPU
   5. path     each path through the entry points a user calls, with every
               launch counter set to 0 just before and read just after:
@@ -106,6 +109,18 @@ def check_close(name: str, got, want, tol: float) -> float:
     if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
         raise AssertionError(f"{name}: max |kernel - plain| {err} over tolerance {tol}")
     return err
+
+
+def ptxas_report(log: str) -> dict:
+    """ptxas's registers, spills and static shared memory for each entry
+    function of one source's build log (`-Xptxas -v`), by mangled name."""
+    report, entry = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif entry and ("registers" in line or "spill" in line):
+            report.setdefault(entry, []).append(line.replace("ptxas info    : ", "").strip())
+    return report
 
 
 def tiny_config(compute_dtype: str):
@@ -208,13 +223,16 @@ def attention_inputs(torch, B: int, Sq: int, Skv: int, D: int, dtype, seed: int)
 
 
 def attention_bound(B: int, Sq: int, Skv: int, D: int, dtype):
-    """q, k, v, the mask and the output moved once, against q.k (on the
-    tensor cores for bf16 inputs) and p.v (p is f32: f32 FMAs)."""
+    """q, k, v, the mask and the output moved once, against the products as
+    the kernel issues them: for bf16 inputs q.k once and p.v twice (p's
+    bf16 high and low parts), all on the bf16 tensor cores; for f32 inputs
+    q.k and p.v once each, on the f32 CUDA cores. Returns the bound and the
+    products' FLOP."""
     import torch
     size = 2 if dtype == torch.bfloat16 else 4
     nbytes = size * (2 * B * Sq * D + 2 * B * Skv * D) + 4 * B * Skv
-    flops = 2 * B * Sq * Skv * D
-    return bound(nbytes, flops / product_rate(dtype) + flops / H100_F32_FLOPS)
+    products = (3 if dtype == torch.bfloat16 else 2) * 2 * B * Sq * Skv * D
+    return bound(nbytes, products / product_rate(dtype)), products
 
 
 def pooling_inputs(torch, B: int, S: int, D: int, dtype, seed: int):
@@ -296,8 +314,7 @@ def main() -> int:
         module.build()
     emit({"phase": "build", "kernels": list(KERNEL_NAMES),
           "seconds": time.perf_counter() - t0,
-          "ptxas": {k: [ln for ln in (_build.BUILD_DIR / f"{k}.log").read_text().splitlines()
-                        if "registers" in ln or "spill" in ln]
+          "ptxas": {k: ptxas_report((_build.BUILD_DIR / f"{k}.log").read_text())
                     for k in KERNEL_NAMES if (_build.BUILD_DIR / f"{k}.log").exists()}})
 
     # 3a. A1: the residual stack
@@ -342,7 +359,7 @@ def main() -> int:
             raise AssertionError(f"conv_tail {label}: shape {tuple(got.shape)}")
         tail["max_abs_err"][label] = check_close(f"conv_tail {label}", got, want, tol)
         del got, want
-    for B, iters in ((4, 20), (128, 3)):
+    for B, iters in ((4, 20), (128, 10)):
         convs, x1 = conv_tail_inputs(torch, B, T1, C, bf16, has_ln=False, seed=B)
         x_cf = x1.transpose(1, 2).contiguous()   # the port's channels-first layout
 
@@ -359,7 +376,8 @@ def main() -> int:
             "plain_ms": cuda_ms(lambda: ct.conv_tail_plain(convs, x1, has_ln=False),
                                 max(1, iters // 3), warmup=1),
             "cudnn_path_ms": cuda_ms(cudnn_path, iters, warmup=1),
-            "bound_ms": bound_ms, "bound_by": bound_by, "tflop": flops / 1e12}
+            "bound_ms": bound_ms, "bound_by": bound_by, "ms_over_bound": ms / bound_ms,
+            "tflop": flops / 1e12}
         del convs, x1, x_cf
     emit({"phase": "kernel", "name": "conv_tail", "C": C, "T1": T1, "tol": BF16_TOL["conv_tail"],
           "f32_tol": KERNEL_TOL, **tail})
@@ -382,14 +400,15 @@ def main() -> int:
         heads = lambda t: t.view(B, t.shape[1], H, D // H).transpose(1, 2)
         qh, kh, vh = heads(q), heads(k), heads(v)
         keep = (mask != 0)[:, None, None, :]
-        bound_ms, bound_by = attention_bound(B, Sq, Skv, D, bf16)
+        (bound_ms, bound_by), products = attention_bound(B, Sq, Skv, D, bf16)
+        ms = cuda_ms(lambda: fa.flash_attention(q, k, v, mask, num_heads=H), 20)
         attn["timing"][site] = {
-            "B": B, "Sq": Sq, "Skv": Skv, "D": D, "heads": H,
-            "ms": cuda_ms(lambda: fa.flash_attention(q, k, v, mask, num_heads=H), 20),
+            "B": B, "Sq": Sq, "Skv": Skv, "D": D, "heads": H, "ms": ms,
+            "tflop_per_s": products / ms / 1e9, "ms_over_bound": ms / bound_ms,
             "plain_ms": cuda_ms(lambda: fa.flash_attention_plain(q, k, v, mask, num_heads=H), 5),
             "library_ms": cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
                 qh, kh, vh, attn_mask=keep), 20),
-            "bound_ms": bound_ms, "bound_by": bound_by}
+            "bound_ms": bound_ms, "bound_by": bound_by, "products_gflop": products / 1e9}
     emit({"phase": "kernel", "name": "flash_attention", "tol": BF16_TOL["attention"],
           "f32_tol": KERNEL_TOL, **attn})
 
@@ -580,6 +599,7 @@ def main() -> int:
          "max_abs_err": max(tail["max_abs_err"].values()), "tol": BF16_TOL["conv_tail"],
          "ms": tail128["ms"], "plain_ms": tail128["plain_ms"],
          "bound_ms": tail128["bound_ms"], "bound_by": tail128["bound_by"],
+         "ms_over_bound": tail128["ms_over_bound"], "tflop_per_s": tail128["tflop_per_s"],
          "library_ms": None, "cudnn_path_ms": tail128["cudnn_path_ms"],
          "B": 128, "at_B4": tail["timing"][4]},
         {"name": "flash_attention", "route": "cuda", "source": SOURCE.format("flash_attention"),
@@ -587,6 +607,7 @@ def main() -> int:
          "max_abs_err": max(attn["max_abs_err"].values()), "tol": BF16_TOL["attention"],
          "ms": w2v_site["ms"], "plain_ms": w2v_site["plain_ms"],
          "bound_ms": w2v_site["bound_ms"], "bound_by": w2v_site["bound_by"],
+         "ms_over_bound": w2v_site["ms_over_bound"], "tflop_per_s": w2v_site["tflop_per_s"],
          "library_ms": w2v_site["library_ms"], "B": 128, "site": "wav2vec2_self",
          "sites": attn["timing"]},
         {"name": "attentive_pooling", "route": "cuda",

@@ -2,10 +2,12 @@
 
 Each `csrc/<name>.cu` exposes a plain C interface and is compiled on first
 use into `build/kernels/lib<name>-<hash>.so` at the root of the checkout
-(listed in .gitignore). The hash covers the source and the flags, so an
-edited source is rebuilt and an unchanged one is loaded as it is. Nothing
-here runs when a module is imported, so the port imports on a machine
-without nvcc or a card; asking for a library there raises.
+(listed in .gitignore). The hash covers the source and its flags, so an
+edited source is rebuilt and an unchanged one is loaded as it is. A source
+that encodes TMA tensor maps (`cuTensorMapEncodeTiled`, which libcuda
+exports and the CUDA runtime does not) links `-lcuda`. Nothing here runs
+when a module is imported, so the port imports on a machine without nvcc
+or a card; asking for a library there raises.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LINK_FLAGS = {"conv_tail": ("-lcuda",)}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -42,7 +45,8 @@ def nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    flags = NVCC_FLAGS + LINK_FLAGS.get(name, ())
+    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
@@ -60,7 +64,7 @@ def build_all(names: Iterable[str]) -> List[Path]:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
         proc = subprocess.Popen([nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                                 str(CSRC / f"{name}.cu")],
+                                 str(CSRC / f"{name}.cu"), *LINK_FLAGS.get(name, ())],
                                 stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                                 text=True)
         running.append((name, proc, tmp, lib))

@@ -8,11 +8,16 @@ logits are scaled by 1/sqrt(Dh) after the q.k product, padded keys get
 -1e30 (not -inf), and the probabilities stay f32 through the value product.
 The output is in q.dtype.
 
-The TPU function's `block_q` / `block_k` were its VMEM tiling; the kernel
-picks its own tiles (32 queries, 64 keys) and takes no such arguments.
-A query row whose keys are all masked is undefined, as in the TPU kernel
-(which averages its padded keys in): neither version is held to a value
-there.
+The route is chosen by dtype (`ROUTES`). bf16 takes the tensor-core
+kernel: q.k on `wgmma` (exact bf16 products, f32 sums), p.v on `wgmma` too
+with p split into bf16 high and low parts, so p keeps f32 accuracy (to
+about 2^-16); K/V tiles stream through a cp.async ring. At the
+wav2vec2-base self-attention (B=128) its bound on an H100 is 46.7 us of
+q/k/v/o traffic. f32 takes the CUDA-core kernel. Both pick their own tiles
+(the TPU function's `block_q` / `block_k` were its VMEM tiling and are not
+arguments here). A query row whose keys are all masked is undefined, as in
+the TPU kernel (which averages its padded keys in): neither version is held
+to a value there.
 
 Like the JAX package, nothing under `models/` calls this: the encoders and
 the cross-modal block use `layers.mha` / the post-LN stack. `flash_attention`
@@ -32,7 +37,6 @@ from . import _build
 Tensor = torch.Tensor
 
 NEG_BIG = -1e30
-_DTYPES = (torch.bfloat16, torch.float32)
 
 
 def _heads(x: Tensor, num_heads: int) -> Tensor:
@@ -56,6 +60,8 @@ def flash_attention_plain(q: Tensor, k: Tensor, v: Tensor, kv_mask: Tensor, *,
 
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _SIGNATURES = {"flash_attention_bf16": _ARGTYPES, "flash_attention_f32": _ARGTYPES}
+# The route by dtype: bf16 on the tensor cores, f32 on the CUDA cores.
+ROUTES = {torch.bfloat16: "flash_attention_bf16", torch.float32: "flash_attention_f32"}
 
 
 def build() -> None:
@@ -94,7 +100,7 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, kv_mask: Tensor, *,
         raise ValueError(f"flash_attention: B * num_heads = {B * num_heads} "
                          "is over the kernel's 65535")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if (t.dtype != q.dtype or q.dtype not in _DTYPES
+        if (t.dtype != q.dtype or q.dtype not in ROUTES
                 or t.device != q.device or not t.is_contiguous()):
             raise ValueError(
                 f"flash_attention: the kernel takes contiguous bf16 or f32 q, "
@@ -105,9 +111,7 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, kv_mask: Tensor, *,
                          f"q on {q.device}")
     mask = kv_mask.to(torch.float32).contiguous()
     out = torch.empty_like(q)
-    entry = ("flash_attention_bf16" if q.dtype == torch.bfloat16
-             else "flash_attention_f32")
-    _build.launch("flash_attention", _SIGNATURES, entry, q.device, q.data_ptr(),
+    _build.launch("flash_attention", _SIGNATURES, ROUTES[q.dtype], q.device, q.data_ptr(),
                   k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
                   B, Sq, Skv, num_heads, Dh)
     flash_attention.launches += 1

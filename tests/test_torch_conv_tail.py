@@ -156,3 +156,23 @@ def test_feature_encoder_fused_gate(monkeypatch):
                     "group_norm": {"scale": torch.ones(8), "bias": torch.zeros(8)}}
     tw.feature_encoder(small_params, small, wave.bfloat16(), mask, allow_fused=True)
     assert calls == [] and x.shape[-1] == C
+
+
+def test_conv_tail_routes_by_dtype():
+    """bf16 goes to the TMA + wgmma GEMM with K-major weights, f32 to the
+    CUDA-core GEMM with [K*C_in, C_out] weights; nothing else has a route."""
+    assert ct.ROUTES == {torch.bfloat16: ("conv_tail_bf16", True),
+                         torch.float32: ("conv_tail_f32", False)}
+
+
+def test_packed_kernels_k_major_is_the_transpose():
+    """The K-major packing ([C_out, K*C_in], column k*C_in + c) holds the
+    same weights as the plain version's [K*C_in, C_out] matrix."""
+    convs = _port_convs(_tail_convs(16, has_ln=False, has_bias=False), torch.float32)
+    rows = ct._packed_kernels(convs, torch.bfloat16)
+    k_major = ct._packed_kernels(convs, torch.bfloat16, k_major=True)
+    for conv, K, r, km in zip(convs[1:], ct.TAIL_KERNELS, rows, k_major):
+        assert tuple(km.shape) == (16, K * 16)
+        assert torch.equal(km, r.t())
+        kernel = conv["kernel"].to(torch.bfloat16)   # [C_out, C_in, K]
+        assert torch.equal(km[5, 1 * 16 + 7], kernel[5, 7, 1])

@@ -88,6 +88,31 @@ def test_conv_tail_kernel_matches_plain(cuda, dtype, has_ln):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("has_ln", [False, True], ids=["gelu", "ln-gelu"])
+@pytest.mark.parametrize("B,C", [(1, 256), (1, 512), (1, 384), (3, 128), (8, 512)],
+                         ids=["b1-c256", "b1-c512", "b1-c384", "b3-c128", "b8-c512"])
+def test_conv_tail_bf16_wgmma_edges(cuda, B, C, has_ln):
+    """The TMA + wgmma route at its edges: one batch row, every layer's last
+    128-frame tile ragged, C of 128 to 512, LN on and off, and (B=8, C=512)
+    more tiles than SMs, so that each block's two consumer warpgroups take
+    turns over several tiles."""
+    T1 = 3199
+    assert all(t % 128 for t in ct.tail_lengths(T1))
+    convs, _ = _tail_convs(cuda, C, has_ln=has_ln, seed=C + B)
+    convs = [{k: (v.bfloat16() if k != "ln" else v) for k, v in c.items()} for c in convs]
+    g = torch.Generator(device=cuda).manual_seed(B)
+    x1 = torch.randn(B, T1, C, device=cuda, generator=g).bfloat16()
+    before = ct.conv_tail.launches
+    got = ct.conv_tail(convs, x1, has_ln=has_ln)
+    want = ct.conv_tail_plain(convs, x1, has_ln=has_ln)
+    torch.cuda.synchronize()
+    assert ct.conv_tail.launches == before + 1
+    assert tuple(got.shape) == (B, ct.tail_lengths(T1)[-1], C)
+    tol = BF16_TOL["conv_tail"]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
 def test_conv_tail_kernel_rejects_what_it_does_not_take(cuda):
     convs, x1 = _tail_convs(cuda, 128, has_ln=False, seed=0)
     with pytest.raises(ValueError, match="bf16 or f32"):
@@ -116,6 +141,39 @@ def test_flash_attention_kernel_matches_plain(cuda, dtype, Sq, Skv, D, H):
     torch.cuda.synchronize()
     assert fa.flash_attention.launches == before + 1
     tol = TOL if dtype == torch.float32 else BF16_TOL["attention"]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Skv,D,H,offset", [
+    (1, 37, 93, 64, 8, 0),      # Dh 8, zero-padded to 64 in shared memory
+    (2, 70, 129, 256, 8, 0),    # Dh 32
+    (2, 65, 47, 768, 12, 0),    # Dh 64, Skv shorter than one tile
+    (1, 100, 211, 256, 2, 0),   # Dh 128: two 64-column panels
+    (3, 13, 255, 384, 8, 0),    # Dh 48
+    (2, 70, 129, 256, 8, 1),    # rows not on 16 bytes: the synchronous copy
+], ids=["dh8-b1", "dh32", "dh64", "dh128-b1", "dh48", "unaligned"])
+def test_flash_attention_bf16_tensor_core_edges(cuda, B, Sq, Skv, D, H, offset):
+    """The wgmma route at its edges: Sq and Skv multiples of neither 64
+    nor 16, head widths padded to one and to two panels, B=1, and one row
+    whose keys are all masked but its first three (a long masked tail)."""
+    g = torch.Generator(device=cuda).manual_seed(Sq * Skv + offset)
+
+    def make(S):
+        flat = torch.randn(B * S * D + offset, device=cuda, generator=g).bfloat16()
+        return flat[offset:].view(B, S, D)
+
+    q, k, v = make(Sq), make(Skv), make(Skv)
+    assert q.is_contiguous() and (q.data_ptr() % 16 != 0) == bool(offset)
+    mask = torch.ones(B, Skv, device=cuda)
+    mask[0, 3:] = 0
+    mask[-1, 1::4] = 0
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, mask, num_heads=H)
+    want = fa.flash_attention_plain(q, k, v, mask, num_heads=H)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    tol = BF16_TOL["attention"]
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 

@@ -63,3 +63,10 @@ def test_a2_and_a3_are_not_wired_into_models():
         text = src.read_text()
         assert "flash_attention" not in text, src
         assert "attentive_pooling" not in text, src
+
+
+def test_flash_attention_routes_by_dtype():
+    """bf16 goes to the tensor-core kernel, f32 to the CUDA-core one;
+    nothing else has a route."""
+    assert fa.ROUTES == {torch.bfloat16: "flash_attention_bf16",
+                         torch.float32: "flash_attention_f32"}
