@@ -10,6 +10,7 @@ Phases, one JSON line each:
   3. kernel   each kernel against its plain PyTorch version on the card, at
               its paths' shapes, with times, the card's bound, the share of
               it reached (ms / bound_ms), TFLOP/s where products bound it,
+              A1's plan and its repeats held bitwise equal,
               and a library call's time where one PyTorch call (SDPA) or
               the port's cuDNN layers compute the same function
   4. agree    a small model on the card against the same model on the CPU
@@ -317,29 +318,42 @@ def main() -> int:
           "ptxas": {k: ptxas_report((_build.BUILD_DIR / f"{k}.log").read_text())
                     for k in KERNEL_NAMES if (_build.BUILD_DIR / f"{k}.log").exists()}})
 
-    # 3a. A1: the residual stack
+    # 3a. A1: the residual stack, one cooperative grid over the card; B=300
+    # has blocks that loop over several row groups
     L, D = 35, 512
     rs.residual_stack.launches = 0
     errs = {}
-    for B in (1, 3, 4, 8, 11, 128):
+    batches = (1, 3, 4, 8, 11, 128, 300)
+    for B in batches:
         stacked, x = residual_stack_inputs(torch, B, L, D, seed=B)
         got = rs.residual_stack(stacked, x)
         want = rs.residual_stack_plain(stacked, x)
         torch.cuda.synchronize()
         errs[B] = check_close(f"residual_stack B={B}", got, want, KERNEL_TOL)
-    if rs.residual_stack.launches != 6:
+    if rs.residual_stack.launches != len(batches):
         raise AssertionError(f"residual_stack launched {rs.residual_stack.launches} "
-                             "times for 6 calls")
-    timing = {}
+                             f"times for {len(batches)} calls")
+    num_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    timing, plans = {}, {}
     for B in (4, 128):
         stacked, x = residual_stack_inputs(torch, B, L, D, seed=B)
+        first, second = rs.residual_stack(stacked, x), rs.residual_stack(stacked, x)
+        torch.cuda.synchronize()
+        if not torch.equal(first, second):
+            raise AssertionError(f"residual_stack B={B}: two launches differ")
+        p = rs.plan(B, L, D, num_sms)
+        plans[B] = {"blocks": p.blocks, "row_groups": p.row_groups, "rows": p.rows,
+                    "col_width": p.col_width, "col_groups": p.col_groups,
+                    "row_blocks": p.row_blocks, "ring_depth": p.depth,
+                    "smem_bytes": p.smem_bytes}
         bound_ms, bound_by = residual_stack_bound(B, L, D)
+        ms = cuda_ms(lambda: rs.residual_stack(stacked, x), 50)
         timing[B] = {
-            "ms": cuda_ms(lambda: rs.residual_stack(stacked, x), 50),
-            "plain_ms": cuda_ms(lambda: rs.residual_stack_plain(stacked, x), 10),
-            "bound_ms": bound_ms, "bound_by": bound_by}
+            "ms": ms, "plain_ms": cuda_ms(lambda: rs.residual_stack_plain(stacked, x), 10),
+            "bound_ms": bound_ms, "bound_by": bound_by, "ms_over_bound": ms / bound_ms}
     emit({"phase": "kernel", "name": "residual_stack", "L": L, "D": D,
-          "tol": KERNEL_TOL, "max_abs_err": errs, "timing": timing})
+          "tol": KERNEL_TOL, "max_abs_err": errs, "bitwise_repeat": True,
+          "plan": plans, "timing": timing})
 
     # 3b. A4: the conv-extractor tail, at the layer-0 output of 4 s clips
     C = 512
@@ -591,9 +605,10 @@ def main() -> int:
         {"name": "residual_stack", "route": "cuda", "source": SOURCE.format("residual_stack"),
          "replaces": REPLACES.format(114), "launches": launches["residual_stack"],
          "max_abs_err": max(errs.values()), "tol": KERNEL_TOL,
-         "ms": t4["ms"], "kernel_ms": t4["ms"], "plain_ms": t4["plain_ms"],
-         "bound_ms": t4["bound_ms"], "bound_by": t4["bound_by"], "library_ms": None,
-         "B": 4, "at_B128": timing[128]},
+         "ms": t4["ms"], "plain_ms": t4["plain_ms"],
+         "bound_ms": t4["bound_ms"], "bound_by": t4["bound_by"],
+         "ms_over_bound": t4["ms_over_bound"], "library_ms": None,
+         "B": 4, "plan": plans[4], "at_B128": {**timing[128], "plan": plans[128]}},
         {"name": "conv_tail", "route": "cuda", "source": SOURCE.format("conv_tail"),
          "replaces": REPLACES.format(467), "launches": launches["conv_tail"],
          "max_abs_err": max(tail["max_abs_err"].values()), "tol": BF16_TOL["conv_tail"],
@@ -616,6 +631,7 @@ def main() -> int:
          "max_abs_err": max(pool["max_abs_err"].values()), "tol": BF16_TOL["attention"],
          "ms": pool_a["ms"], "plain_ms": pool_a["plain_ms"],
          "bound_ms": pool_a["bound_ms"], "bound_by": pool_a["bound_by"],
+         "ms_over_bound": pool_a["ms"] / pool_a["bound_ms"],
          "library_ms": None, "B": 128, "site": "pool_a", "sites": pool["timing"]},
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

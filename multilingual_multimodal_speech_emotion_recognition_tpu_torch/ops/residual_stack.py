@@ -10,10 +10,15 @@ stream in. Per layer: y = LN_pre(h); h = y + (relu(LN_blk(y) @ W1 + b1)
 Bound on an H100: one read of the weights, L * 2 * D * D * 4 bytes (73.4 MB
 at the flagship's L=35, D=512), about 22 us at 3.35 TB/s for a small batch;
 at B=128 the f32 FMAs on the CUDA cores (4.7 GFLOP at 67 TFLOP/s, ~70 us)
-bound it instead. The kernel's design keeps each block's rows in shared
-memory across all layers, so the activation never goes back to device
-memory; see the source for how the products are laid out and why a small
-batch sits far above the bound.
+bound it instead. The 2L products form a chain, each needing all of the
+one before, so the kernel is one cooperative grid that spreads every
+product over the card: each block owns a strip of output columns and some
+groups of batch rows (`plan`), the grid meets at a hand-written barrier
+after each product, and each block's weight strips stream by tensor copies
+into a shared-memory ring ahead of the chain, so the weight reads leave
+the critical path. What is left on it is latency: the barrier, the L2
+round trip of the exchanged rows, the LNs and each product's reduction.
+See the source for the phases and the ring.
 
 `residual_stack` takes the plain version for a tensor on the CPU only; for a
 CUDA tensor it launches the kernel or raises.
@@ -22,6 +27,8 @@ CUDA tensor it launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import Iterator, NamedTuple, Tuple
 
 import torch
 
@@ -32,6 +39,16 @@ Tensor = torch.Tensor
 
 _VECTORS = (("ln_pre", "scale"), ("ln_pre", "bias"),
             ("block_ln", "scale"), ("block_ln", "bias"))
+
+# What csrc/residual_stack.cu takes; plan() keeps to it.
+WARPS = 8                        # 256 threads a block
+MAX_SMEM = 232_448               # bytes of shared memory a block may use
+BLOCKS_PER_SM = 1                # the ring fills one SM's shared memory
+ROW_GROUP_SIZES = (4, 8, 16)     # rows a block's accumulators hold
+# Column strips the plan picks from (the kernel takes any cw / 4 that
+# divides a warp). Timed on an H100 at D=512 (PERF.md): 4 columns were no
+# faster than 8 at B=4, 64 slower than 32 at B=128.
+COL_WIDTHS = (8, 16, 32)
 
 
 def residual_stack_plain(stacked: dict, x: Tensor) -> Tensor:
@@ -48,7 +65,92 @@ def residual_stack_plain(stacked: dict, x: Tensor) -> Tensor:
     return h
 
 
-_SIGNATURES = {"residual_stack_f32": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3
+class Plan(NamedTuple):
+    """How the kernel cuts [B, D] over its grid. Block b owns the columns
+    [c0, c0 + col_width) with c0 = (b % col_groups) * col_width (the last
+    group cut at D), and the row groups b // col_groups, + row_blocks, ...
+    of `rows` rows each."""
+    batch: int
+    width: int           # D
+    rows: int
+    col_width: int
+    col_groups: int
+    row_blocks: int
+    depth: int           # weight strips the shared-memory ring holds
+    smem_bytes: int
+
+    @property
+    def blocks(self) -> int:
+        return self.col_groups * self.row_blocks
+
+    @property
+    def row_groups(self) -> int:
+        return -(-self.batch // self.rows)
+
+    def tiles(self, block: int) -> Iterator[Tuple[int, int, int, int]]:
+        """(row_start, row_stop, col_start, col_stop) of each tile the
+        block computes, as the kernel indexes them."""
+        c0 = (block % self.col_groups) * self.col_width
+        for g in range(block // self.col_groups, self.row_groups, self.row_blocks):
+            yield (g * self.rows, min(self.batch, (g + 1) * self.rows),
+                   c0, min(self.width, c0 + self.col_width))
+
+
+def slot_floats(D: int, col_width: int) -> int:
+    """csrc/residual_stack.cu:slot_floats: one ring slot, a strip of D rows
+    (zero-padded to whole tensor copies of at most 256 rows k / 4, 8 at a
+    time), four LN vectors and col_width biases, on 128 bytes."""
+    boxes = -(-D // 4 // 256)
+    plane = boxes * ((-(-(D // 4) // boxes) + 7) // 8 * 8)
+    return (4 * plane * col_width + 4 * D + col_width + 31) // 32 * 32
+
+
+def smem_bytes(rows: int, D: int, col_width: int, depth: int) -> int:
+    """csrc/residual_stack.cu:smem_bytes: slack to align the ring to 128
+    bytes, the ring, its mbarriers, the [rows, D] activation and the warps'
+    partial sums."""
+    barriers = (8 * depth + 15) // 16 * 16
+    return (128 + 4 * depth * slot_floats(D, col_width) + barriers
+            + 4 * (rows * D + WARPS * rows * col_width))
+
+
+@functools.lru_cache(maxsize=256)
+def plan(B: int, L: int, D: int, num_sms: int) -> Plan:
+    """The kernel's grid for a [B, D] input and L layers on a card of
+    `num_sms` SMs that hold BLOCKS_PER_SM blocks each.
+
+    Rows come in groups of 4, 8 or 16 (the fewest that hold B, up to 16).
+    Among the column widths that fit the shared memory with a ring of at
+    least one strip, it takes the one whose blocks each do the least work
+    (row groups x columns per block), and of equals the widest: fewer
+    blocks recompute the LNs and read each exchanged row. The ring is as
+    deep as the rest allows. Raises ValueError where nothing fits."""
+    rows_first = next(r for r in ROW_GROUP_SIZES if r >= min(B, ROW_GROUP_SIZES[-1]))
+    capacity = num_sms * BLOCKS_PER_SM
+    budget = MAX_SMEM // BLOCKS_PER_SM
+    for rows in reversed([r for r in ROW_GROUP_SIZES if r <= rows_first]):
+        row_groups = -(-B // rows)
+        best = None
+        for w in COL_WIDTHS:
+            col_groups = -(-D // w)
+            if col_groups > capacity:
+                continue
+            depth = min(2 * L, (budget - smem_bytes(rows, D, w, 0)) // (4 * slot_floats(D, w)))
+            while depth >= 1 and smem_bytes(rows, D, w, depth) > budget:
+                depth -= 1
+            if depth < 1:
+                continue
+            row_blocks = min(row_groups, capacity // col_groups)
+            key = (-(-row_groups // row_blocks) * w, -w)
+            if best is None or key < best[0]:
+                best = (key, Plan(B, D, rows, w, col_groups, row_blocks, depth,
+                                  smem_bytes(rows, D, w, depth)))
+        if best is not None:
+            return best[1]
+    raise ValueError(f"residual_stack: no grid fits B={B}, D={D} on {num_sms} SMs")
+
+
+_SIGNATURES = {"residual_stack_f32": [ctypes.c_void_p] * 13 + [ctypes.c_int] * 8
                + [ctypes.c_void_p]}
 
 
@@ -83,9 +185,17 @@ def residual_stack(stacked: dict, x: Tensor) -> Tensor:
                 f"residual_stack: the kernel takes contiguous f32 tensors on "
                 f"{x.device} of shape {shape}; got {tuple(t.shape)} "
                 f"{t.dtype} on {t.device} (contiguous={t.is_contiguous()})")
+        if t.data_ptr() % 16:
+            raise ValueError("residual_stack: the kernel takes 16-byte aligned tensors")
+    B = x.shape[0]
+    p = plan(B, L, D, torch.cuda.get_device_properties(x.device).multi_processor_count)
     out = torch.empty_like(x)
+    exchange = torch.empty(2, B, D, dtype=torch.float32, device=x.device)  # u, y
+    arrivals = torch.zeros(1, dtype=torch.int32, device=x.device)
     _build.launch("residual_stack", _SIGNATURES, "residual_stack_f32", x.device,
-                  *(t.data_ptr() for t in args), out.data_ptr(), x.shape[0], L, D)
+                  *(t.data_ptr() for t in args), out.data_ptr(), exchange[0].data_ptr(),
+                  exchange[1].data_ptr(), arrivals.data_ptr(), B, L, D, p.rows,
+                  p.col_width, p.col_groups, p.row_blocks, p.depth)
     residual_stack.launches += 1
     return out
 

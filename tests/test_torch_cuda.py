@@ -34,20 +34,52 @@ def _perturbed_stack(device, L, D, seed):
         for k, v in sub.items():
             if k != "kernel":
                 v += 0.1 * torch.randn(v.shape, device=device, generator=g)
-    return stacked, torch.randn(11, D, device=device, generator=g)
+    return stacked, torch.randn(300, D, device=device, generator=g)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("L,D", [(35, 512), (3, 32), (2, 768)])
+@pytest.mark.parametrize("L,D", [(35, 512), (3, 32), (2, 768), (2, 1500)])
 def test_residual_stack_kernel_matches_plain(cuda, L, D):
+    """B=300 has more row groups than the grid has row blocks, so blocks
+    loop over several of them; D=1500 takes two tensor copies per strip
+    plane and leaves the last column group ragged."""
     stacked, x = _perturbed_stack(cuda, L, D, seed=D)
     before = rs.residual_stack.launches
-    for B in (1, 4, 11):
+    batches = (1, 4, 11, 128, 300)
+    for B in batches:
         got = rs.residual_stack(stacked, x[:B].contiguous())
         want = rs.residual_stack_plain(stacked, x[:B])
         torch.cuda.synchronize()
         torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
-    assert rs.residual_stack.launches == before + 3
+    assert rs.residual_stack.launches == before + len(batches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [4, 128])
+def test_residual_stack_kernel_repeats_bitwise(cuda, B):
+    stacked, x = _perturbed_stack(cuda, 35, 512, seed=B)
+    x = x[:B].contiguous()
+    first = rs.residual_stack(stacked, x)
+    second = rs.residual_stack(stacked, x)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,D,B,col_width", [
+    (35, 512, 4, 8), (35, 512, 300, 16), (35, 512, 128, 32),
+    (3, 516, 4, 8), (3, 516, 128, 16), (2, 2048, 4, 16)])
+def test_residual_stack_kernel_every_column_width(cuda, L, D, B, col_width):
+    """Each width the plan picks, at shapes where it picks it; D=516
+    leaves the last column group ragged."""
+    assert rs.plan(B, L, D, torch.cuda.get_device_properties(cuda).multi_processor_count
+                   ).col_width == col_width
+    stacked, x = _perturbed_stack(cuda, L, D, seed=col_width)
+    x = x[:B].contiguous()
+    got = rs.residual_stack(stacked, x)
+    want = rs.residual_stack_plain(stacked, x)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
 
 
 @pytest.mark.cuda
