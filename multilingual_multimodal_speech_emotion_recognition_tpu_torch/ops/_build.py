@@ -26,7 +26,8 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-LINK_FLAGS = {"conv_tail": ("-lcuda",), "residual_stack": ("-lcuda",)}
+LINK_FLAGS = {"attentive_pooling": ("-lcuda",), "conv_tail": ("-lcuda",),
+              "residual_stack": ("-lcuda",)}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 

@@ -258,3 +258,91 @@ def test_attentive_pooling_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="bf16 or f32"):
         ap.attentive_stats_pooling(_pool_params(cuda, 64, 128, torch.float32, 0),
                                    x.half(), mask)
+
+
+def _pool_mask(device, B, S, seed):
+    """Row 0 fully masked, row 1's whole last 64-frame tile (its second half
+    if S <= 64) masked, row 2 fractional, the rest valid; one row: fractional."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    mask = torch.ones(B, S, device=device)
+    if B == 1:
+        return torch.rand(1, S, device=device, generator=g)
+    mask[0] = 0
+    mask[1, ((S - 1) // 64 * 64 if S > 64 else S // 2):] = 0
+    if B > 2:
+        mask[2] = torch.rand(S, device=device, generator=g)
+    return mask
+
+
+# The largest B*S*D*H a case runs, so that each launch of the f32 route (its
+# MLP on the CUDA cores) takes milliseconds: B=300 at S=1499 keeps D*H <= 24576.
+POOL_WORK = 1.2e10
+def _assert_pool_close(got, want, D, tol, what=""):
+    """The mean half within tol, the std half through std^2 = max(var, 0)
+    + 1e-6 within tol: where a row's variance is about 0 (one frame, or all
+    weight on one frame) the square root multiplies the f32 rounding of
+    E[x^2] - mean^2 by 1 / (2 std) = 500, so one ulp of E[x^2] (an FMA
+    contracted on one side only) moves std by 1e-4."""
+    got, want = got.float(), want.float()
+    torch.testing.assert_close(got[:, :D], want[:, :D], rtol=tol, atol=tol,
+                               msg=lambda m: f"{what} mean: {m}")
+    torch.testing.assert_close(got[:, D:] ** 2, want[:, D:] ** 2, rtol=tol, atol=tol,
+                               msg=lambda m: f"{what} std^2: {m}")
+
+
+# x dtype, W1 dtype, route, tolerance
+POOL_ROUTES = {"bf16": (torch.bfloat16, torch.bfloat16, "bf16", BF16_TOL["attention"]),
+               "f32": (torch.float32, torch.float32, "f32", TOL),
+               "bf16x_f32w": (torch.bfloat16, torch.float32, "f32", BF16_TOL["attention"])}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", list(POOL_ROUTES))
+@pytest.mark.parametrize("B", [1, 5, 300])
+@pytest.mark.parametrize("S", [1, 7, 32, 45, 199, 1499])
+def test_attentive_pooling_routes_match_plain(cuda, route, B, S):
+    x_dtype, w_dtype, want_route, tol = POOL_ROUTES[route]
+    for D, H in ((64, 32), (768, 128), (1536, 256), (768, 32)):
+        if B * S * D * H > POOL_WORK:
+            continue
+        params = _pool_params(cuda, D, H, w_dtype, seed=S + D + H)
+        g = torch.Generator(device=cuda).manual_seed(B * S)
+        x = torch.randn(B, S, D, device=cuda, generator=g).to(x_dtype)
+        mask = _pool_mask(cuda, B, S, seed=S)
+        got = ap.attentive_stats_pooling(params, x, mask)
+        assert ap.attentive_stats_pooling.last_route == want_route
+        want = ap.attentive_stats_pooling_plain(params, x, mask)
+        torch.cuda.synchronize()
+        assert got.dtype == x_dtype and tuple(got.shape) == (B, 2 * D)
+        _assert_pool_close(got, want, D, tol, f"D={D} H={H}")
+        if B > 1:  # a row with no valid frame: mean 0, std 1e-3
+            torch.testing.assert_close(got[0].float(), torch.cat(
+                [torch.zeros(D), torch.full((D,), 1e-3)]).to(cuda), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S", [(4, 199), (128, 199), (128, 32), (5, 1499)])
+def test_attentive_pooling_bf16_repeats_bitwise(cuda, B, S):
+    params = _pool_params(cuda, 768, 128, torch.bfloat16, seed=B)
+    x = torch.randn(B, S, 768, device=cuda).bfloat16()
+    mask = _pool_mask(cuda, B, S, seed=B)
+    first = ap.attentive_stats_pooling(params, x, mask)
+    second = ap.attentive_stats_pooling(params, x, mask)
+    torch.cuda.synchronize()
+    assert ap.attentive_stats_pooling.last_route == "bf16"
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+def test_attentive_pooling_bf16_without_a_tensor_map_takes_the_f32_route(cuda):
+    """D % 8 != 0 or an x off 16 bytes: no TMA; W1 widened to f32 (exact)."""
+    for D, offset in ((36, 0), (64, 1)):
+        params = _pool_params(cuda, D, 32, torch.bfloat16, seed=D)
+        flat = torch.randn(3 * 40 * D + offset, device=cuda).bfloat16()
+        x = flat[offset:].view(3, 40, D)
+        mask = _pool_mask(cuda, 3, 40, seed=D)
+        got = ap.attentive_stats_pooling(params, x, mask)
+        assert ap.attentive_stats_pooling.last_route == "f32"
+        want = ap.attentive_stats_pooling_plain(params, x, mask)
+        torch.cuda.synchronize()
+        _assert_pool_close(got, want, D, BF16_TOL["attention"])

@@ -59,6 +59,31 @@ def test_model_forward_matches_jax(dtype, tol, use_openmax):
         assert_close(g, w, tol)
 
 
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 3e-2)])
+@pytest.mark.parametrize("branch", ["pad_frames_valid", "use_asr"])
+def test_model_forward_branches_match_jax(dtype, tol, branch):
+    """encode_audio's pad_frames_valid branch and encode_text's ASR-feature
+    fusion (which runs only when the batch carries asr_feats [B, 8]) against
+    the JAX package; each branch must change the port's output."""
+    cfg = tiny_config(compute_dtype=dtype, **{branch: True})
+    params = jm.init_model(jax.random.key(0), cfg)
+    batch = tiny_batch()
+    if branch == "use_asr":
+        batch["asr_feats"] = jnp.asarray(
+            np.random.default_rng(2).standard_normal((4, 8)).astype(np.float32))
+    want = jax.jit(lambda p, b: jm.model_forward(p, cfg, b))(params, batch)
+    port_cfg = tcfg.from_json(jcfg.to_json(cfg))
+    assert getattr(port_cfg, branch)
+    port_params = weights.params_from_jax(_numpy(params), port_cfg, device="cpu")
+    got = tm.model_forward(port_params, port_cfg, _numpy(batch))
+    for field, g, w in zip(want._fields, got, want):
+        assert g.shape == w.shape, field
+        assert_close(g, w, tol)
+    without = tm.model_forward(port_params, dataclasses.replace(port_cfg, **{branch: False}),
+                               _numpy(batch))
+    assert not torch.allclose(without.fused.float(), got.fused.float(), rtol=tol, atol=tol)
+
+
 def _tiny_tree():
     cfg = tiny_config()
     return cfg, tcfg.from_json(jcfg.to_json(cfg)), _numpy(jm.init_model(jax.random.key(0), cfg))
