@@ -14,12 +14,22 @@ Phases, one JSON line each:
               A2 also timed alone after a write that flushes the L2,
               and a library call's time where one PyTorch call (SDPA) or
               the port's cuDNN layers compute the same function
-  4. agree    a small model on the card against the same model on the CPU
+  4. agree    a small model on the card against the same model on the CPU,
+              with precomputed front-end features and, on 1 s worst-case /
+              speech-like / padded rows, with the front-end DSP (gate
+              decisions and conditioning flags equal)
   5. path     each path through the entry points a user calls, with every
               launch counter set to 0 just before and read just after:
               - the flagship eval forward (wav2vec2-base + XLM-R-base ->
                 35-layer OpenMax head, bf16) through `model_forward`, at B=4
-                and at B=128 with 4 s clips (kernel A1);
+                and at B=128 with 4 s clips (kernel A1), on precomputed
+                front-end features;
+              - the same forward on a batch without them, so that it runs
+                the front-end DSP first (the default config's main path),
+                at B=4 and B=128 on worst-case audio (the notch, HPF and
+                denoise gates fire) and on speech-like audio: ms, utt/s,
+                peak memory, the DSP's own ms, its host reads (torch's sync
+                debug mode) and A1's launches;
               - `feature_encoder(allow_fused=True)` at wav2vec2-base width,
                 4 s clips, B=4 and B=128, bf16, against the unfused
                 extractor (kernel A4);
@@ -55,6 +65,8 @@ AGREE_TOL = {"float32": 1e-4,   # card vs CPU, TF32 off: summation order only
              "bfloat16": 3e-2}  # bf16 rounding at other places (the JAX package's bf16 bound)
 REQUESTS_B4 = 5
 REQUESTS_B128 = 3
+SAMPLE_RATE = 16000
+DSP_HOST_READS = 3   # condition_audio's gates: notch/HPF, denoise, dereverb
 CLIP_SAMPLES = 4 * 16000
 TEXT_TOKENS = 32
 ATTENTION_SITES = {  # (Sq, Skv, D, heads) at the flagship's shapes
@@ -150,12 +162,12 @@ def ptxas_report(log: str) -> dict:
     return report
 
 
-def tiny_config(compute_dtype: str):
+def tiny_config(compute_dtype: str, frontend_dsp: bool = False):
     from multilingual_multimodal_speech_emotion_recognition_tpu_torch.config import (
         ModelConfig, Wav2Vec2Config, XLMRConfig)
     return ModelConfig(
         num_labels=4, adapter_dim=8, shared_dim=16, num_heads=4, proj_dim=32,
-        classifier_layers=3, classifier_base_dim=32, frontend_dsp=False,
+        classifier_layers=3, classifier_base_dim=32, frontend_dsp=frontend_dsp,
         compute_dtype=compute_dtype,
         audio=Wav2Vec2Config(conv_dim=(8, 8), conv_stride=(10, 8),
                              conv_kernel=(10, 3), hidden_size=16,
@@ -181,6 +193,62 @@ def example_batch(B: int, T: int, S: int, vocab: int, seed: int = 0) -> dict:
             "audio_mask": audio_mask, "text_ids": ids, "text_mask": text_mask,
             "quality_feats": np.zeros((B, 8), np.float32),
             "cond_feats": np.zeros((B, 12), np.float32)}
+
+
+def speech_like(B: int, T: int, seed: int) -> np.ndarray:
+    """Modulated multi-tone rows plus a little noise, roughly speech-shaped
+    (the JAX package's front-end tests use this signal)."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(T) / SAMPLE_RATE
+    env = 0.5 + 0.5 * np.sin(2 * np.pi * 3.0 * t)
+    x = env * (0.4 * np.sin(2 * np.pi * 220 * t) + 0.2 * np.sin(2 * np.pi * 880 * t)
+               + 0.1 * np.sin(2 * np.pi * 1760 * t))
+    return (x[None, :] + 0.01 * rng.standard_normal((B, T))).astype(np.float32)
+
+
+def worst_case_dsp_audio(B: int, T: int, seed: int) -> np.ndarray:
+    """Rows that fire every front-end branch that can fire and pass the
+    gates (a copy of the JAX package's eval/benchmark.py
+    worst_case_dsp_audio): even rows a 50 Hz hum over 130 Hz energy (notch,
+    HPF), odd rows an AM square wave whose high sample-energy floor sets
+    off the denoiser; both faded in and out over 12 % of the clip."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(T) / SAMPLE_RATE
+    edge = max(1, int(0.12 * T))
+    env = np.minimum(1.0, np.minimum(np.arange(T), np.arange(T)[::-1]) / edge)
+    am = 1.0 + 0.6 * np.sin(2 * np.pi * 3.0 * t)
+    hum_clip = (0.3 * np.sin(2 * np.pi * 50.0 * t) + 0.3 * np.sin(2 * np.pi * 130.0 * t)
+                + 0.12 * np.sin(2 * np.pi * 220.0 * t) * am)
+    noisy_clip = 0.35 * am * np.sign(np.sin(2 * np.pi * 370.0 * t))
+    x = np.where((np.arange(B) % 2 == 0)[:, None], hum_clip[None, :], noisy_clip[None, :]) \
+        + 0.02 * rng.standard_normal((B, T))
+    return np.clip(x * env[None, :], -1.0, 1.0).astype(np.float32)
+
+
+def host_reads(torch, fn):
+    """(fn(), the number of calls inside it that waited for the card to
+    read a value back), counted by torch's sync debug mode."""
+    import warnings
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def dsp_flags(stats) -> dict:
+    """How many rows each front-end branch and gate decision took."""
+    c, q = stats["conditioning"], stats["quality"]
+    flags = {f: int(getattr(c, f).sum()) for f in
+             ("hum_filtered", "hpf_applied", "denoise_applied", "dereverb_applied")}
+    flags["decisions"] = {name: int((q.decision == code).sum())
+                          for name, code in (("reject", 0), ("uncertain", 1), ("accept", 2))}
+    return flags
 
 
 def residual_stack_inputs(torch, B: int, L: int, D: int, seed: int):
@@ -295,6 +363,24 @@ def tree_to(tree, device):
     return tree.to(device)
 
 
+def card_against_cpu(torch, mdl, cfg, batch: dict, tol: float) -> dict:
+    """model_forward of one small model on the card and on the CPU: each
+    output's max |card - CPU|; raises where one is out of tolerance."""
+    cpu_params = mdl.init_model(cfg, torch.Generator().manual_seed(3), "cpu")
+    want = mdl.model_forward(cpu_params, cfg, batch)
+    got = mdl.model_forward(tree_to(cpu_params, "cuda"), cfg, batch)
+    torch.cuda.synchronize()
+    diffs = {}
+    for field, g, w in zip(want._fields, got, want):
+        g, w = g.float().cpu(), w.float()
+        diffs[field] = float((g - w).abs().max())
+        if not torch.allclose(g, w, rtol=tol, atol=tol):
+            raise AssertionError(f"{cfg.compute_dtype} (front-end DSP {cfg.frontend_dsp}) "
+                                 f"{field}: card vs CPU max diff {diffs[field]} over "
+                                 f"tolerance {tol}")
+    return diffs
+
+
 def reset_counts(wrappers) -> None:
     for w in wrappers.values():
         w.launches = 0
@@ -309,6 +395,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch import frontend
     from multilingual_multimodal_speech_emotion_recognition_tpu_torch.config import (
         ModelConfig)
     from multilingual_multimodal_speech_emotion_recognition_tpu_torch.models import (
@@ -507,19 +594,43 @@ def main() -> int:
              "quality_feats": rng.standard_normal((B, 8)).astype(np.float32),
              "cond_feats": rng.standard_normal((B, 12)).astype(np.float32)}
     for dtype, tol in AGREE_TOL.items():
-        cfg = tiny_config(dtype)
-        cpu_params = mdl.init_model(cfg, torch.Generator().manual_seed(3), "cpu")
-        want = mdl.model_forward(cpu_params, cfg, small)
-        got = mdl.model_forward(tree_to(cpu_params, "cuda"), cfg, small)
-        torch.cuda.synchronize()
-        diffs = {}
-        for field, g, w in zip(want._fields, got, want):
-            g, w = g.float().cpu(), w.float()
-            diffs[field] = float((g - w).abs().max())
-            if not torch.allclose(g, w, rtol=tol, atol=tol):
-                raise AssertionError(f"{dtype} {field}: card vs CPU max diff "
-                                     f"{diffs[field]} over tolerance {tol}")
-        emit({"phase": "agree", "dtype": dtype, "tol": tol, "max_abs_diff": diffs})
+        emit({"phase": "agree", "dtype": dtype, "tol": tol,
+              "max_abs_diff": card_against_cpu(torch, mdl, tiny_config(dtype), small, tol)})
+
+    # 4b. the same with the front-end DSP: 1 s rows (worst case x2, speech-
+    # like, speech-like padded to 0.7 s), no precomputed features
+    T = SAMPLE_RATE
+    audio = np.concatenate([worst_case_dsp_audio(2, T, seed=5), speech_like(2, T, seed=3)])
+    audio_mask = np.ones_like(audio)
+    audio_mask[3, int(0.7 * T):] = 0
+    audio *= audio_mask
+    dsp_small = {"audio": audio, "audio_mask": audio_mask, "text_ids": ids,
+                 "text_mask": text_mask}
+    ent, conf = torch.ones(B), torch.zeros(B)
+    want_dsp = frontend.frontend_process(torch.from_numpy(audio), torch.from_numpy(audio_mask),
+                                         lid_entropy=ent, lid_confidence=conf)
+    got_dsp = frontend.frontend_process(torch.from_numpy(audio).cuda(),
+                                        torch.from_numpy(audio_mask).cuda(),
+                                        lid_entropy=ent.cuda(), lid_confidence=conf.cuda())
+    flags = {"cpu": dsp_flags(want_dsp[3]), "card": dsp_flags(got_dsp[3])}
+    for stage, fields in (("quality", ("decision",)),
+                          ("conditioning", ("hum_filtered", "hpf_applied", "denoise_applied",
+                                            "dereverb_applied", "noise_type"))):
+        for field in fields:
+            g = getattr(got_dsp[3][stage], field).cpu()
+            if not torch.equal(g, getattr(want_dsp[3][stage], field)):
+                raise AssertionError(f"front-end {stage}.{field}: card {g.tolist()} vs CPU "
+                                     f"{getattr(want_dsp[3][stage], field).tolist()}")
+    if not all(flags["cpu"][f] for f in ("hum_filtered", "hpf_applied", "denoise_applied")):
+        raise AssertionError(f"front-end branches on the small batch: {flags['cpu']}")
+    dsp_diffs = {name: check_close(f"front-end {name} card vs CPU", g.cpu(), w, KERNEL_TOL)
+                 for name, g, w in zip(("quality_feats", "cond_feats"), got_dsp[1:3],
+                                       want_dsp[1:3])}
+    for dtype, tol in AGREE_TOL.items():
+        diffs = card_against_cpu(torch, mdl, tiny_config(dtype, frontend_dsp=True), dsp_small, tol)
+        emit({"phase": "agree", "dtype": dtype, "frontend_dsp": True, "tol": tol,
+              "max_abs_diff": diffs, "dsp_features_max_abs_diff": dsp_diffs,
+              "dsp_tol": KERNEL_TOL, "dsp_flags": flags})
 
     launches = dict.fromkeys(KERNEL_NAMES, 0)
 
@@ -557,6 +668,64 @@ def main() -> int:
                    "launches": count}
         emit({"phase": "path", "path": "model_forward", "B": B, "seconds": 4.0,
               "text_tokens": TEXT_TOKENS, "card": smi, **path[B]})
+
+    # 5a'. the same forward on batches without front-end features: the
+    # default config runs the DSP first, on the card
+    for kind, make in (("worst_case", worst_case_dsp_audio), ("speech_like", speech_like)):
+        for B, requests in ((4, REQUESTS_B4), (128, REQUESTS_B128)):
+            batch = example_batch(B, T=CLIP_SAMPLES, S=TEXT_TOKENS, vocab=cfg.text.vocab_size)
+            del batch["quality_feats"], batch["cond_feats"]
+            batch["audio"] = make(B, CLIP_SAMPLES, seed=B)
+            batch["audio_mask"] = np.ones_like(batch["audio"])
+            batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+            lid = {"lid_entropy": torch.ones(B, device="cuda"),
+                   "lid_confidence": torch.zeros(B, device="cuda")}
+            dsp = lambda: frontend.frontend_process(batch["audio"], batch["audio_mask"], **lid)
+            stats, dsp_reads = host_reads(torch, dsp)
+            stats = stats[3]
+            out, forward_reads = host_reads(torch, lambda: mdl.model_forward(params, cfg, batch))
+            if dsp_reads != DSP_HOST_READS:
+                raise AssertionError(f"{kind} B={B}: the front-end DSP read the card "
+                                     f"{dsp_reads} times, not {DSP_HOST_READS}")
+            dsp_times = []
+            for _ in range(requests):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                dsp()
+                torch.cuda.synchronize()
+                dsp_times.append(time.perf_counter() - t0)
+            torch.cuda.reset_peak_memory_stats()
+            times = []
+            reset_counts(wrappers)
+            for _ in range(requests):
+                t0 = time.perf_counter()
+                out = mdl.model_forward(params, cfg, batch)
+                logits = out.logits.cpu()
+                times.append(time.perf_counter() - t0)
+            count = counts(wrappers)
+            if count["residual_stack"] != requests:
+                raise AssertionError(f"{kind} B={B}: residual_stack launched "
+                                     f"{count['residual_stack']} times in {requests} forwards")
+            launches["residual_stack"] += count["residual_stack"]
+            for field, v in zip(out._fields, out):
+                if not torch.isfinite(v.float()).all():
+                    raise AssertionError(f"{kind} B={B}: {field} is not finite")
+            if tuple(logits.shape) != (B, cfg.num_labels):
+                raise AssertionError(f"{kind} B={B}: logits {tuple(logits.shape)}")
+            fired = dsp_flags(stats)
+            if kind == "worst_case" and not all(
+                    fired[f] for f in ("hum_filtered", "hpf_applied", "denoise_applied")):
+                raise AssertionError(f"worst-case B={B}: a heavy branch did not fire: {fired}")
+            ms = 1e3 * sorted(times[1:])[len(times[1:]) // 2]
+            dsp_ms = 1e3 * sorted(dsp_times[1:])[len(dsp_times[1:]) // 2]
+            emit({"phase": "path", "path": "model_forward with the front-end DSP",
+                  "audio": kind, "B": B, "seconds": 4.0, "text_tokens": TEXT_TOKENS,
+                  "card": smi, "requests": requests, "ms": ms,
+                  "utt_per_s": B / (ms / 1e3), "dsp_ms": dsp_ms, "dsp_share": dsp_ms / ms,
+                  "host_reads": {"dsp": dsp_reads, "forward": forward_reads},
+                  "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                  "branches": fired, "launches": count})
+            del batch, out, stats
 
     # 5b. feature_encoder(allow_fused=True) (A4), wav2vec2-base width
     w2v_params = mdl.cast_floating(params["audio_backbone"], bf16)

@@ -8,9 +8,9 @@ OpenMax classifier. With compute_dtype "bfloat16" the encoders,
 cross-attention, pooling and fusion run on bf16 copies of their
 parameters, while the classifier runs in f32 on the raw parameters.
 
-Eval only: `deterministic=False` raises. The front-end DSP is not ported
-yet, so a batch must carry `quality_feats` / `cond_feats` whenever the
-config would run it.
+Eval only: `deterministic=False` raises. A batch without `quality_feats` /
+`cond_feats` runs the front-end DSP (quality gates, then conditioning) on
+its waveform first, where the config enables it.
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..config import ModelConfig
+from ..frontend import frontend_process
 from ..ops import pooling as pooling_ops
 from ..utils.runtime import resolve_device
 from . import classifier as clf
@@ -179,17 +180,27 @@ def encode_text(params: dict, cfg: ModelConfig, input_ids: Tensor,
 
 
 def frontend_features(cfg: ModelConfig, batch: dict):
-    """(wave, quality_feats, cond_feats). The front-end DSP is not ported:
-    where the JAX package would run it, this raises."""
+    """(wave, quality_feats, cond_feats). Where the config enables the
+    front-end DSP and the batch carries neither feature set, the DSP runs
+    on the f32 waveform, on its device: the gates may zero clips, the
+    conditioning filters what the encoder reads. Otherwise the features
+    stay as the batch has them (None if absent)."""
+    wave = batch["audio"]
     quality_feats = batch.get("quality_feats")
     cond_feats = batch.get("cond_feats")
     if (cfg.frontend_dsp and (cfg.use_quality_gates or cfg.use_audio_conditioning)
             and quality_feats is None and cond_feats is None):
-        raise NotImplementedError(
-            "the front-end DSP (quality gates, conditioning) is not ported "
-            "yet (ROADMAP Queue A item 7): pass quality_feats and cond_feats "
-            "in the batch, or set frontend_dsp=False")
-    return batch["audio"], quality_feats, cond_feats
+        B = wave.shape[0]
+        # without text, LID gives entropy 1.0 and confidence 0
+        ent = batch.get("lid_entropy", torch.ones(B, device=wave.device))
+        conf = batch.get("lid_conf", torch.zeros(B, device=wave.device))
+        wave, quality_feats, cond_feats, _ = frontend_process(
+            wave.float(), batch["audio_mask"].float(),
+            lid_entropy=ent, lid_confidence=conf,
+            use_gates=cfg.use_quality_gates,
+            use_conditioning=cfg.use_audio_conditioning,
+            zero_non_accept=cfg.zero_non_accept)
+    return wave, quality_feats, cond_feats
 
 
 def model_heads(params: dict, cfg: ModelConfig, a_seq: Tensor, a_mask: Tensor,

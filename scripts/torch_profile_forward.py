@@ -2,13 +2,17 @@
 """Where the PyTorch port's flagship eval forward spends its time on one GPU.
 
 Usage (from the root of a checkout, on a machine with a CUDA device):
-    python3 scripts/torch_profile_forward.py [--batch 4 128] [--out DIR]
+    python3 scripts/torch_profile_forward.py [--batch 4 128] [--dsp on off] [--out DIR]
 
-For each batch size (4 s clips, 32 text tokens, random weights from seed 0,
-compute_dtype bfloat16) it prints one JSON line with:
+For each batch size and front-end setting (4 s clips, 32 text tokens,
+random weights from seed 0, compute_dtype bfloat16) it prints one JSON line.
+With the DSP on, the batch carries no front-end features, so model_forward
+runs the front-end DSP on worst-case audio (chip_smoke.worst_case_dsp_audio:
+the notch, HPF and denoise gates fire); off, it carries zero features and
+noise audio, as before the DSP was ported. Each line has:
   * stage_ms: host clock around each stage of model_forward, synchronised
-    (parameter cast, wav2vec2 + adapter + feature fusion, XLM-R + adapter,
-    cross-attention + pooling + fusion + classifier);
+    (parameter cast, front-end DSP, wav2vec2 + adapter + feature fusion,
+    XLM-R + adapter, cross-attention + pooling + fusion + classifier);
   * forward_ms: the whole model_forward, synchronised;
   * device_busy_ms / device_idle_share: the union of the kernels' time
     intervals in a torch.profiler trace of one forward, against its wall
@@ -20,6 +24,7 @@ With --out, the profiler's table is also written to DIR/profile_B<B>.txt.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import subprocess
 import sys
@@ -31,13 +36,14 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
+from chip_smoke import worst_case_dsp_audio  # noqa: E402
 from multilingual_multimodal_speech_emotion_recognition_tpu_torch.config import (  # noqa: E402
     ModelConfig)
 from multilingual_multimodal_speech_emotion_recognition_tpu_torch.models import (  # noqa: E402
     model as mdl)
 
 
-def example_batch(B, T, S, vocab, device, seed=0):
+def example_batch(B, T, S, vocab, device, dsp, seed=0):
     rng = np.random.default_rng(seed)
     audio_mask = np.ones((B, T), np.float32)
     audio_mask[0, T // 2:] = 0
@@ -45,10 +51,13 @@ def example_batch(B, T, S, vocab, device, seed=0):
     text_mask = np.ones((B, S), np.float32)
     ids[:, S // 2:] = 1
     text_mask[:, S // 2:] = 0
-    batch = {"audio": rng.standard_normal((B, T)).astype(np.float32) * 0.1,
-             "audio_mask": audio_mask, "text_ids": ids, "text_mask": text_mask,
-             "quality_feats": np.zeros((B, 8), np.float32),
-             "cond_feats": np.zeros((B, 12), np.float32)}
+    batch = {"audio_mask": audio_mask, "text_ids": ids, "text_mask": text_mask}
+    if dsp:
+        batch["audio"] = worst_case_dsp_audio(B, T, seed) * audio_mask
+    else:
+        batch.update(audio=rng.standard_normal((B, T)).astype(np.float32) * 0.1,
+                     quality_feats=np.zeros((B, 8), np.float32),
+                     cond_feats=np.zeros((B, 12), np.float32))
     return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
 
 
@@ -75,9 +84,11 @@ def stages(params, cfg, batch):
     dtype = torch.bfloat16
     ms = {}
     p, ms["cast"] = timed(lambda: mdl.encoder_params(params, cfg))
+    (wave, quality_feats, cond_feats), ms["dsp"] = timed(
+        lambda: mdl.frontend_features(cfg, batch))
     (a_seq, a_mask), ms["audio"] = timed(lambda: mdl.encode_audio(
-        p, cfg, batch["audio"].to(dtype), batch["audio_mask"],
-        quality_feats=batch["quality_feats"], cond_feats=batch["cond_feats"]))
+        p, cfg, wave.to(dtype), batch["audio_mask"],
+        quality_feats=quality_feats, cond_feats=cond_feats))
     (t_seq, t_mask), ms["text"] = timed(lambda: mdl.encode_text(
         p, cfg, batch["text_ids"], batch["text_mask"]))
     _, ms["heads"] = timed(lambda: mdl.model_heads(params, cfg, a_seq, a_mask,
@@ -88,6 +99,7 @@ def stages(params, cfg, batch):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, nargs="+", default=[4, 128])
+    ap.add_argument("--dsp", choices=("on", "off"), nargs="+", default=["on", "off"])
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -98,8 +110,8 @@ def main() -> int:
                           text=True, check=True, timeout=60).stdout.strip()
     cfg = ModelConfig(compute_dtype="bfloat16")
     params = mdl.init_model(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
-    for B in args.batch:
-        batch = example_batch(B, 4 * 16000, 32, cfg.text.vocab_size, "cuda")
+    for B, dsp in itertools.product(args.batch, args.dsp):
+        batch = example_batch(B, 4 * 16000, 32, cfg.text.vocab_size, "cuda", dsp == "on")
         for _ in range(2):
             mdl.model_forward(params, cfg, batch)
         stage_ms = stages(params, cfg, batch)
@@ -115,10 +127,10 @@ def main() -> int:
         top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
         if args.out is not None:
             args.out.mkdir(parents=True, exist_ok=True)
-            (args.out / f"profile_B{B}.txt").write_text(prof.key_averages().table(
+            (args.out / f"profile_B{B}_dsp_{dsp}.txt").write_text(prof.key_averages().table(
                 sort_by="self_cuda_time_total", row_limit=40))
         print(json.dumps({
-            "B": B, "card": card, "forward_ms": fwd[len(fwd) // 2],
+            "B": B, "dsp": dsp, "card": card, "forward_ms": fwd[len(fwd) // 2],
             "stage_ms": stage_ms, "profiled_wall_ms": wall_ms,
             "device_busy_ms": busy_ms,
             "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),

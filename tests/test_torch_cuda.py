@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain versions on the card.
+"""The port's CUDA kernels against their plain versions on the card, and
+the front-end DSP on the card against the port's CPU result.
 
 Marked `cuda`: each test skips where torch sees no CUDA device. On a GPU
 machine with nvcc: python -m pytest tests/test_torch_cuda.py -m cuda -q
@@ -7,9 +8,13 @@ JAX package's bounds: 4e-2 for the conv tail, 3e-2 for attention and
 pooling (one output rounding, or a few across the six conv layers).
 """
 
+import warnings
+
+import numpy as np
 import pytest
 import torch
 
+from multilingual_multimodal_speech_emotion_recognition_tpu_torch import frontend
 from multilingual_multimodal_speech_emotion_recognition_tpu_torch.models import (
     layers as tl, classifier as tclf)
 from multilingual_multimodal_speech_emotion_recognition_tpu_torch.ops import (
@@ -346,3 +351,68 @@ def test_attentive_pooling_bf16_without_a_tensor_map_takes_the_f32_route(cuda):
         want = ap.attentive_stats_pooling_plain(params, x, mask)
         torch.cuda.synchronize()
         _assert_pool_close(got, want, D, BF16_TOL["attention"])
+
+
+def _dsp_batch(B=4, T=16000, seed=5):
+    """1 s rows at 16 kHz: a 50 Hz hum over 130 Hz energy (notch and HPF),
+    an AM square wave (denoise), a speech-like tone mix, and the hum row
+    padded to 0.7 s."""
+    t = np.arange(T) / 16000
+    rng = np.random.default_rng(seed)
+    fade = np.minimum(1.0, np.minimum(np.arange(T), np.arange(T)[::-1]) / (0.12 * T))
+    am = 1.0 + 0.6 * np.sin(2 * np.pi * 3.0 * t)
+    hum = (0.3 * np.sin(2 * np.pi * 50 * t) + 0.3 * np.sin(2 * np.pi * 130 * t)
+           + 0.12 * np.sin(2 * np.pi * 220 * t) * am) * fade
+    square = 0.35 * am * np.sign(np.sin(2 * np.pi * 370 * t)) * fade
+    speech = am * (0.4 * np.sin(2 * np.pi * 220 * t) + 0.2 * np.sin(2 * np.pi * 880 * t))
+    rows = [hum, square, speech, hum][:B]
+    wave = np.stack(rows) + 0.02 * rng.standard_normal((len(rows), T))
+    mask = np.ones_like(wave)
+    mask[3:, int(0.7 * T):] = 0
+    return (torch.from_numpy((wave * mask).astype(np.float32)),
+            torch.from_numpy(mask.astype(np.float32)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("zero_non_accept", [False, True])
+def test_frontend_process_on_the_card_matches_the_cpu(cuda, zero_non_accept):
+    """The front-end DSP on the card against the port's own CPU result:
+    gate decisions and conditioning flags equal, features within 1e-4,
+    the wave within 1e-4 of each row's peak (cuFFT against pocketfft)."""
+    wave, mask = _dsp_batch()
+    ent, conf = torch.ones(4), torch.full((4,), 0.5)
+    kw = dict(zero_non_accept=zero_non_accept)
+    want = frontend.frontend_process(wave, mask, lid_entropy=ent, lid_confidence=conf, **kw)
+    got = frontend.frontend_process(wave.to(cuda), mask.to(cuda), lid_entropy=ent.to(cuda),
+                                    lid_confidence=conf.to(cuda), **kw)
+    torch.cuda.synchronize()
+    assert got[0].device.type == "cuda"
+    peak = want[0].abs().amax(-1, keepdim=True).clamp(min=1e-30)
+    assert ((got[0].cpu() - want[0]).abs() <= 1e-4 * peak).all()
+    for g, w in zip(got[1:3], want[1:3]):
+        torch.testing.assert_close(g.cpu(), w, rtol=TOL, atol=TOL)
+    assert torch.equal(got[3]["quality"].decision.cpu(), want[3]["quality"].decision)
+    for flag in ("hum_filtered", "hpf_applied", "denoise_applied", "dereverb_applied",
+                 "noise_type"):
+        assert torch.equal(getattr(got[3]["conditioning"], flag).cpu(),
+                           getattr(want[3]["conditioning"], flag)), flag
+
+
+@pytest.mark.cuda
+def test_frontend_process_reads_only_its_branch_predicates(cuda):
+    """The DSP's only device-to-host reads are condition_audio's three gates
+    (notch/HPF, denoise, dereverb): torch's sync debug mode warns once for
+    each synchronising call."""
+    wave, mask = (x.to(cuda) for x in _dsp_batch())
+    ent, conf = torch.ones(4, device=cuda), torch.zeros(4, device=cuda)
+    frontend.frontend_process(wave, mask, lid_entropy=ent, lid_confidence=conf)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            frontend.frontend_process(wave, mask, lid_entropy=ent, lid_confidence=conf)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    assert len(syncs) == 3, [str(w.message) for w in syncs]

@@ -24,6 +24,7 @@ from multilingual_multimodal_speech_emotion_recognition_tpu_torch.models import 
     model as tm)
 
 from test_model import tiny_batch, tiny_config
+from test_torch_frontend import dsp_batch
 from torch_port_helpers import assert_close
 
 REPO = Path(__file__).resolve().parents[1]
@@ -84,6 +85,26 @@ def test_model_forward_branches_match_jax(dtype, tol, branch):
     assert not torch.allclose(without.fused.float(), got.fused.float(), rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 3e-2)])
+@pytest.mark.parametrize("zero_non_accept", [False, True], ids=["reject", "non_accept"])
+def test_model_forward_with_frontend_dsp_matches_jax(dtype, tol, zero_non_accept):
+    """The default config's forward on a batch without quality_feats /
+    cond_feats: both packages run the front-end DSP on 1 s clips that fire
+    the notch, HPF and denoise gates, then the model on what it leaves."""
+    cfg = tiny_config(compute_dtype=dtype, frontend_dsp=True, zero_non_accept=zero_non_accept)
+    params = jm.init_model(jax.random.key(0), cfg)
+    wave, mask = dsp_batch()
+    batch = {k: v for k, v in tiny_batch().items() if k not in ("quality_feats", "cond_feats")}
+    batch.update(audio=jnp.asarray(wave), audio_mask=jnp.asarray(mask))
+    want = jax.jit(lambda p, b: jm.model_forward(p, cfg, b))(params, batch)
+    port_cfg = tcfg.from_json(jcfg.to_json(cfg))
+    got = tm.model_forward(weights.params_from_jax(_numpy(params), port_cfg, device="cpu"),
+                           port_cfg, _numpy(batch))
+    for field, g, w in zip(want._fields, got, want):
+        assert g.shape == w.shape, field
+        assert_close(g, w, tol)
+
+
 def _tiny_tree():
     cfg = tiny_config()
     return cfg, tcfg.from_json(jcfg.to_json(cfg)), _numpy(jm.init_model(jax.random.key(0), cfg))
@@ -134,11 +155,13 @@ def test_unported_paths_raise():
         tm.model_forward(params, port_cfg, batch, deterministic=False)
     no_feats = {k: v for k, v in batch.items() if k not in ("quality_feats", "cond_feats")}
     dsp_cfg = dataclasses.replace(port_cfg, frontend_dsp=True)
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        tm.model_forward(params, dsp_cfg, no_feats)
-    # without the DSP the missing features are zeros, as in the JAX package
+    # the front-end DSP runs where the batch has no features...
+    dsp = tm.model_forward(params, dsp_cfg, no_feats)
+    assert torch.isfinite(dsp.logits).all()
+    # ...and without it the missing features are zeros, as in the JAX package
     out = tm.model_forward(params, port_cfg, no_feats)
     assert torch.isfinite(out.logits).all()
+    assert not torch.allclose(dsp.logits, out.logits)
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
