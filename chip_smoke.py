@@ -17,7 +17,9 @@ Phases, one JSON line each:
   4. agree    a small model on the card against the same model on the CPU,
               with precomputed front-end features and, on 1 s worst-case /
               speech-like / padded rows, with the front-end DSP (gate
-              decisions and conditioning flags equal)
+              decisions and conditioning flags equal); the TTA step
+              (5 views, fed the same noise draws) and its resampled and
+              noised views, card against CPU
   5. path     each path through the entry points a user calls, with every
               launch counter set to 0 just before and read just after:
               - the flagship eval forward (wav2vec2-base + XLM-R-base ->
@@ -36,7 +38,17 @@ Phases, one JSON line each:
               - `flash_attention` at the attention sites of the flagship's
                 shapes (kernel A3) and `attentive_stats_pooling` at its
                 pooling sites (kernel A2), B=4 and B=128: the JAX package
-                reaches these two kernels only through these functions
+                reaches these two kernels only through these functions;
+              - manifest eval: 48 WAV clips of 0.6-7 s written here (three
+                buckets), scored by the port's eval CLI at full width (random
+                weights from seed 0 in a checkpoint, bf16) with 5-view TTA
+                and a temperature calibrated on the same manifest: clips/s,
+                ms per step, the time the steps waited for the loader, A1's
+                launches, host reads per step, the WAV decoder, peak memory,
+                and 48 prediction lines joined back to the manifest;
+              - bench.py's TTA shape: the 5-view TTA step at B=128 (640
+                rows) and B=4, 4 s clips, 32 tokens, the DSP on, then
+                logits / 1.2: ms, utt/s, peak memory (kernel A1)
 Then the `kernels` line and, last, {"ok": true, "device": {...}}.
 
 A tolerance `tol` is held as the JAX package's tests hold theirs:
@@ -49,9 +61,11 @@ exits 1 before printing any result.
 from __future__ import annotations
 
 import json
+import shutil
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -63,6 +77,7 @@ BF16_TOL = {"conv_tail": 4e-2,   # the JAX package's bound for the fused tail
             "attention": 3e-2}   # and for bf16 pooling: one output rounding
 AGREE_TOL = {"float32": 1e-4,   # card vs CPU, TF32 off: summation order only
              "bfloat16": 3e-2}  # bf16 rounding at other places (the JAX package's bf16 bound)
+VIEW_TOL = 1e-5      # resampled / noised views, card vs CPU: f32 summation order
 REQUESTS_B4 = 5
 REQUESTS_B128 = 3
 SAMPLE_RATE = 16000
@@ -80,6 +95,10 @@ POOL_HIDDEN = 128
 L2_FLUSH_BYTES = 128 * 2 ** 20   # written before each flushed launch; the L2 holds 50 MB
 SPIN_CYCLES = 2_000_000          # about 1 ms of the H100's clock: the host gets ahead
 KERNEL_NAMES = ("residual_stack", "conv_tail", "flash_attention", "attentive_pooling")
+A1_TTA_BATCHES = (20, 40, 640)   # V*B rows of the TTA step: B=4, 8 (the CLI) and 128
+MANIFEST_CLIPS = 48
+CLIP_TEXTS = ("angry shouting words", "happy cheerful words", "sad crying words",
+              "neutral plain words")
 SOURCE = "multilingual_multimodal_speech_emotion_recognition_tpu_torch/csrc/{}.cu"
 REPLACES = "multilingual_multimodal_speech_emotion_recognition_tpu/ops/pallas_kernels.py:{}"
 
@@ -146,7 +165,7 @@ def check_close(name: str, got, want, tol: float) -> float:
     import torch
     err = float((got.float() - want.float()).abs().max())
     if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
-        raise AssertionError(f"{name}: max |kernel - plain| {err} over tolerance {tol}")
+        raise AssertionError(f"{name}: max |got - want| {err} over tolerance {tol}")
     return err
 
 
@@ -355,17 +374,11 @@ def pooling_bound(B: int, S: int, D: int, dtype):
     return bound(nbytes, op_s)
 
 
-def tree_to(tree, device):
-    if isinstance(tree, dict):
-        return {k: tree_to(v, device) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [tree_to(v, device) for v in tree]
-    return tree.to(device)
-
-
 def card_against_cpu(torch, mdl, cfg, batch: dict, tol: float) -> dict:
     """model_forward of one small model on the card and on the CPU: each
     output's max |card - CPU|; raises where one is out of tolerance."""
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.utils.runtime import (
+        tree_to)
     cpu_params = mdl.init_model(cfg, torch.Generator().manual_seed(3), "cpu")
     want = mdl.model_forward(cpu_params, cfg, batch)
     got = mdl.model_forward(tree_to(cpu_params, "cuda"), cfg, batch)
@@ -379,6 +392,78 @@ def card_against_cpu(torch, mdl, cfg, batch: dict, tol: float) -> dict:
                                  f"{field}: card vs CPU max diff {diffs[field]} over "
                                  f"tolerance {tol}")
     return diffs
+
+
+def tta_card_against_cpu(torch, audio: np.ndarray, audio_mask: np.ndarray, ids, text_mask):
+    """The TTA views and the 5-view TTA step of a small model on the card
+    against the CPU, both fed the same standard-normal noise draws: the
+    resampled views and all five views within VIEW_TOL, masks equal, the
+    step's logits within AGREE_TOL. Returns the errors."""
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.config import Config
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.eval import (
+        evaluate as ev)
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.models import (
+        model as mdl)
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.ops import audio_dsp
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.utils.runtime import (
+        tree_to)
+    B, T = audio.shape
+    x, m = torch.from_numpy(audio), torch.from_numpy(audio_mask)
+    draws = [torch.from_numpy(np.random.default_rng(s).standard_normal((B, T))
+                              .astype(np.float32)) for s in (21, 22)]
+    errs = {}
+    for orig, new in ((16000, 15200), (15200, 16000), (16000, 16800), (16800, 16000)):
+        errs[f"sinc_resample {orig}->{new}"] = check_close(
+            f"sinc_resample {orig}->{new} card vs CPU",
+            audio_dsp.sinc_resample(x.cuda(), orig, new).cpu(),
+            audio_dsp.sinc_resample(x, orig, new), VIEW_TOL)
+    want_w, want_m = audio_dsp.tta_expand(x, m, num_tta=5, noise=draws)
+    got_w, got_m = audio_dsp.tta_expand(x.cuda(), m.cuda(), num_tta=5,
+                                        noise=[d.cuda() for d in draws])
+    if not torch.equal(got_m.cpu(), want_m):
+        raise AssertionError("tta_expand: the views' masks differ between card and CPU")
+    errs["tta_expand views"] = check_close("tta_expand card vs CPU", got_w.cpu(), want_w,
+                                           VIEW_TOL)
+    lid = np.ones(B, np.float32), np.full(B, 0.3, np.float32)
+    batch = {"audio": audio, "audio_mask": audio_mask, "text_ids": ids,
+             "text_mask": text_mask, "lid_entropy": lid[0], "lid_conf": lid[1]}
+    for dtype, tol in AGREE_TOL.items():
+        cfg = Config(model=tiny_config(dtype, frontend_dsp=True))
+        cpu_params = mdl.init_model(cfg.model, torch.Generator().manual_seed(3), "cpu")
+        want = ev.make_tta_eval_step(cfg, 5, device="cpu")(cpu_params, batch, noise=draws)
+        got = ev.make_tta_eval_step(cfg, 5, device="cuda")(tree_to(cpu_params, "cuda"),
+                                                           batch, noise=draws)
+        errs[f"tta_step {dtype}"] = check_close(f"TTA step {dtype} card vs CPU", got.cpu(),
+                                                want, tol)
+    return errs
+
+
+def write_manifest_clips(root, n: int, seed: int) -> str:
+    """n clips of 0.6-7 s (the 2, 4 and 8 s buckets) as 16-bit WAVs under
+    root/datasets: a class tone (220-660 Hz) with two harmonics under a 3 Hz
+    envelope and a little noise, labels 0-3 in turn, a text for each
+    class. Returns the manifest's path."""
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.data import (
+        audio_io, manifest)
+    rng = np.random.default_rng(seed)
+    wavdir = root / "datasets" / "clips"
+    wavdir.mkdir(parents=True, exist_ok=True)
+    items = []
+    for i in range(n):
+        label = i % 4
+        L = int(SAMPLE_RATE * (0.6 + 6.4 * i / (n - 1)))
+        t = np.arange(L) / SAMPLE_RATE
+        f0 = 220.0 * (1 + label / 2)
+        x = (0.5 + 0.5 * np.sin(2 * np.pi * 3.0 * t)) * (
+            0.4 * np.sin(2 * np.pi * f0 * t) + 0.2 * np.sin(4 * np.pi * f0 * t)
+            + 0.1 * np.sin(6 * np.pi * f0 * t))
+        x += 0.01 * rng.standard_normal(L)
+        audio_io.write_wav(wavdir / f"c{i:03d}.wav", x.astype(np.float32), SAMPLE_RATE)
+        items.append({"audio": f"clips/c{i:03d}.wav", "text": CLIP_TEXTS[label],
+                      "label": label, "dataset": "synthetic"})
+    path = root / "manifest.jsonl"
+    manifest.write_manifest(path, items)
+    return str(path)
 
 
 def reset_counts(wrappers) -> None:
@@ -397,7 +482,7 @@ def main() -> int:
         return 1
     from multilingual_multimodal_speech_emotion_recognition_tpu_torch import frontend
     from multilingual_multimodal_speech_emotion_recognition_tpu_torch.config import (
-        ModelConfig)
+        ModelConfig, to_json)
     from multilingual_multimodal_speech_emotion_recognition_tpu_torch.models import (
         layers, model as mdl, wav2vec2 as w2v)
     from multilingual_multimodal_speech_emotion_recognition_tpu_torch.ops import (
@@ -436,7 +521,7 @@ def main() -> int:
     L, D = 35, 512
     rs.residual_stack.launches = 0
     errs = {}
-    batches = (1, 3, 4, 8, 11, 128, 300)
+    batches = (1, 3, 4, 8, 11, 128, 300) + A1_TTA_BATCHES
     for B in batches:
         stacked, x = residual_stack_inputs(torch, B, L, D, seed=B)
         got = rs.residual_stack(stacked, x)
@@ -448,7 +533,7 @@ def main() -> int:
                              f"times for {len(batches)} calls")
     num_sms = torch.cuda.get_device_properties(0).multi_processor_count
     timing, plans = {}, {}
-    for B in (4, 128):
+    for B in (4, 128) + A1_TTA_BATCHES:
         stacked, x = residual_stack_inputs(torch, B, L, D, seed=B)
         first, second = rs.residual_stack(stacked, x), rs.residual_stack(stacked, x)
         torch.cuda.synchronize()
@@ -632,6 +717,11 @@ def main() -> int:
               "max_abs_diff": diffs, "dsp_features_max_abs_diff": dsp_diffs,
               "dsp_tol": KERNEL_TOL, "dsp_flags": flags})
 
+    # 4c. the TTA step and its views, card against CPU, on the same rows
+    emit({"phase": "agree", "path": "tta_step", "views": 5, "view_tol": VIEW_TOL,
+          "tol": AGREE_TOL,
+          "max_abs_diff": tta_card_against_cpu(torch, audio, audio_mask, ids, text_mask)})
+
     launches = dict.fromkeys(KERNEL_NAMES, 0)
 
     # 5a. the flagship eval forward (A1)
@@ -810,6 +900,131 @@ def main() -> int:
               "launches": count, "attention_sites": list(ATTENTION_SITES),
               "pooling_sites": list(POOLING_SITES)})
 
+    # 5d. manifest eval through the port's CLI: 48 WAV clips, a checkpoint
+    # of random full-width weights, 5-view TTA, calibrated temperature
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.cli import (
+        eval as eval_cli)
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.config import (
+        Config, DataConfig)
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.data import (
+        manifest as manifest_lib, pipeline, prefetch, tokenizer)
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.eval import (
+        evaluate as ev)
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.train import (
+        checkpoint as ckpt)
+    work = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        manifest = write_manifest_clips(work, MANIFEST_CLIPS, seed=0)
+        eval_cfg = Config(model=cfg, data=DataConfig(dataset_root=str(work / "datasets")))
+        params = mdl.init_model(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+        ckpt.save_checkpoint(work / "checkpoint", params=params, config_json=to_json(eval_cfg))
+        del params
+        torch.cuda.empty_cache()
+        preds_path = work / "predictions.jsonl"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(wrappers)
+        t0 = time.perf_counter()
+        res = eval_cli.main(["--manifest", manifest, "--checkpoint", str(work / "checkpoint"),
+                             "--use_tta", "--num_tta", "5", "--calibrate",
+                             "--val_manifest", manifest, "--batch_size", "8",
+                             "--predictions_out", str(preds_path)])
+        cli_seconds = time.perf_counter() - t0
+        count = counts(wrappers)
+        peak = torch.cuda.max_memory_allocated()
+        steps, cal_steps = len(res["step_seconds"]), len(res["calibration_step_seconds"])
+        if count["residual_stack"] != steps + cal_steps:
+            raise AssertionError(f"manifest eval: residual_stack launched "
+                                 f"{count['residual_stack']} times in {steps} TTA and "
+                                 f"{cal_steps} calibration steps")
+        launches["residual_stack"] += count["residual_stack"]
+        logits = res["logits"]
+        if logits.shape != (MANIFEST_CLIPS, cfg.num_labels) or not np.isfinite(logits).all():
+            raise AssertionError(f"manifest eval: logits {logits.shape} not finite")
+        items = manifest_lib.read_manifest(manifest)
+        rows = [json.loads(line) for line in preds_path.read_text().splitlines()]
+        if sorted(r["index"] for r in rows) != list(range(MANIFEST_CLIPS)) or any(
+                r["audio"] != items[r["index"]]["audio"]
+                or r["label"] != items[r["index"]]["label"] for r in rows):
+            raise AssertionError(f"manifest eval: {len(rows)} prediction lines do not join "
+                                 f"back to the {len(items)} manifest rows")
+        # host reads of one TTA step and one plain step (logits read back
+        # included), and of the prefetch alone, on the CLI's first batch
+        params, _ = ckpt.restore_checkpoint(work / "checkpoint")
+        loader = pipeline.BucketedLoader(
+            pipeline.SERDataset(manifest, eval_cfg.data), batch_size=8,
+            tokenizer=tokenizer.get_tokenizer(vocab_size=cfg.text.vocab_size), shuffle=False)
+        n_batches, prefetch_reads = host_reads(torch, lambda: sum(
+            1 for _ in prefetch.device_prefetch(loader.epoch(0), torch.device("cuda"),
+                                                skip=pipeline.EVAL_HOST_KEYS)))
+        batch, _ = next(prefetch.device_prefetch(loader.epoch(0), torch.device("cuda"),
+                                                 skip=pipeline.EVAL_HOST_KEYS))
+        tta_step = ev.make_tta_eval_step(eval_cfg, 5)
+        generator = torch.Generator(device="cuda").manual_seed(0)
+        _, tta_reads = host_reads(torch, lambda: tta_step(params, batch, generator).cpu())
+        plain_step = ev.make_eval_step(cfg, use_openmax=False)
+        _, plain_reads = host_reads(torch, lambda: plain_step(params, batch)[0].cpu())
+        warm = sorted(res["step_seconds"][1:])
+        emit({"phase": "path", "path": "manifest eval (cli.eval: 5-view TTA, calibrated)",
+              "card": smi, "clips": MANIFEST_CLIPS, "batch_size": 8, "tta_rows": 40,
+              "buckets_s": sorted({b["audio"].shape[1] / SAMPLE_RATE
+                                   for b in loader.epoch(0)}),
+              "tta_steps": steps, "calibration_steps": cal_steps,
+              "clips_per_s": MANIFEST_CLIPS / res["pass_seconds"],
+              "tta_pass_s": res["pass_seconds"],
+              "tta_step_ms": {"first": 1e3 * res["step_seconds"][0],
+                              "median_after_first": 1e3 * warm[len(warm) // 2],
+                              "all": [1e3 * x for x in res["step_seconds"]]},
+              "loader_wait_s": res["pass_seconds"] - float(res["step_seconds"].sum()),
+              "calibration_step_ms": [1e3 * x for x in res["calibration_step_seconds"]],
+              "cli_s": cli_seconds, "decoder": res["decoder"],
+              "temperature": res["temperature"],
+              "host_reads": {"tta_step": tta_reads, "plain_step": plain_reads,
+                             "prefetch_pass": prefetch_reads, "prefetch_batches": n_batches},
+              "max_memory_allocated": peak, "launches": count,
+              "prediction_lines": len(rows)})
+        del res, batch
+        torch.cuda.empty_cache()
+
+        # 5e. bench.py's TTA shape: 5 views, the DSP on, logits / 1.2
+        bench_cfg = Config(model=cfg)
+        tta_step = ev.make_tta_eval_step(bench_cfg, 5, use_openmax=True)
+        for B, requests in ((4, REQUESTS_B4), (128, REQUESTS_B128)):
+            batch = example_batch(B, T=CLIP_SAMPLES, S=TEXT_TOKENS, vocab=cfg.text.vocab_size)
+            del batch["quality_feats"], batch["cond_feats"]
+            batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+            generator = torch.Generator(device="cuda").manual_seed(1)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts(wrappers)
+            times = []
+            for _ in range(requests):
+                t0 = time.perf_counter()
+                out = (tta_step(params, batch, generator) / 1.2).cpu()
+                times.append(time.perf_counter() - t0)
+            count = counts(wrappers)
+            peak = torch.cuda.max_memory_allocated()
+            if count["residual_stack"] != requests:
+                raise AssertionError(f"TTA B={B}: residual_stack launched "
+                                     f"{count['residual_stack']} times in {requests} calls")
+            launches["residual_stack"] += count["residual_stack"]
+            if tuple(out.shape) != (B, cfg.num_labels) or not torch.isfinite(out).all():
+                raise AssertionError(f"TTA B={B}: logits {tuple(out.shape)} not finite")
+            _, reads = host_reads(torch, lambda: tta_step(params, batch, generator).cpu())
+            ms = 1e3 * sorted(times[1:])[len(times[1:]) // 2]
+            emit({"phase": "path", "path": "bench.py TTA shape (5 views, /1.2)", "B": B,
+                  "rows": 5 * B, "seconds": 4.0, "text_tokens": TEXT_TOKENS, "card": smi,
+                  "requests": requests, "first_ms": 1e3 * times[0], "ms": ms,
+                  "utt_per_s": B / (ms / 1e3), "host_reads": reads,
+                  "max_memory_allocated": peak, "launches": count})
+            del batch, out
+            torch.cuda.empty_cache()
+        del params
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+
     for kname, n in launches.items():
         if n < 1:
             raise AssertionError(f"{kname} was launched no time on its path")
@@ -824,7 +1039,8 @@ def main() -> int:
          "ms": t4["ms"], "plain_ms": t4["plain_ms"],
          "bound_ms": t4["bound_ms"], "bound_by": t4["bound_by"],
          "ms_over_bound": t4["ms_over_bound"], "library_ms": None,
-         "B": 4, "plan": plans[4], "at_B128": {**timing[128], "plan": plans[128]}},
+         "B": 4, "plan": plans[4], "at_B128": {**timing[128], "plan": plans[128]},
+         "at_tta_rows": {B: {**timing[B], "plan": plans[B]} for B in A1_TTA_BATCHES}},
         {"name": "conv_tail", "route": "cuda", "source": SOURCE.format("conv_tail"),
          "replaces": REPLACES.format(467), "launches": launches["conv_tail"],
          "max_abs_err": max(tail["max_abs_err"].values()), "tol": BF16_TOL["conv_tail"],
@@ -848,7 +1064,7 @@ def main() -> int:
          "ms": pool_a["ms"], "plain_ms": pool_a["plain_ms"],
          "bound_ms": pool_a["bound_ms"], "bound_by": pool_a["bound_by"],
          "ms_over_bound": pool_a["ms_over_bound"], "ms_warm": pool_a["ms_warm"],
-         "library_ms": None, "B": 128, "site": "pool_a", "route": "bf16",
+         "library_ms": None, "B": 128, "site": "pool_a", "pool_route": "bf16",
          "plan": pool["plan"]["pool_a B=128"], "sites": pool["timing"]},
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

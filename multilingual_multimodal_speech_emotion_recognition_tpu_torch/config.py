@@ -1,7 +1,9 @@
-"""Model configuration of the port: its own copies of the JAX package's
-ModelConfig (config.py), Wav2Vec2Config (models/wav2vec2.py) and XLMRConfig
-(models/xlmr.py), with the same fields and defaults, so a JAX checkpoint's
-config JSON loads here unchanged."""
+"""Configuration of the port: its own copies of the JAX package's
+ModelConfig and DataConfig (config.py), Wav2Vec2Config (models/wav2vec2.py)
+and XLMRConfig (models/xlmr.py), with the same fields and defaults, so a
+JAX checkpoint's config JSON loads here unchanged. `Config` holds the model
+and data sections; the JAX package's train and mesh sections wait for the
+training and parallelism slices and are ignored when read."""
 
 from __future__ import annotations
 
@@ -92,10 +94,35 @@ class ModelConfig:
         return self.text.hidden_size
 
 
-_NESTED = {"audio": Wav2Vec2Config, "text": XLMRConfig}
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    sample_rate: int = 16000
+    max_audio_seconds: float = 30.0
+    min_audio_seconds: float = 0.5
+    max_text_tokens: int = 64
+    audio_buckets: Tuple[float, ...] = (2.0, 4.0, 8.0, 16.0, 30.0)
+    dataset_root: str = "datasets"
+    # per-utterance ASR features in batches: Whisper is not ported yet
+    # (ROADMAP Queue A item 14), so the loader raises when this is set
+    emit_asr_feats: bool = False
+    # False: the gates see no text (the reference's plain eval loop), so
+    # every row takes the no-text LID constants (1.0, 0.0)
+    gates_see_text: bool = True
+    # pad audio to the batch's longest clip instead of the bucket cap
+    pad_to_batch_max: bool = False
 
 
-def to_json(cfg: ModelConfig) -> str:
+@dataclasses.dataclass(frozen=True)
+class Config:
+    model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    data: DataConfig = dataclasses.field(default_factory=DataConfig)
+
+
+_NESTED = {"model": ModelConfig, "data": DataConfig, "audio": Wav2Vec2Config,
+           "text": XLMRConfig}
+
+
+def to_json(cfg) -> str:
     return json.dumps(dataclasses.asdict(cfg), indent=2)
 
 
@@ -119,3 +146,10 @@ def from_json(s: str) -> ModelConfig:
     ignored, as the JAX package's loader does."""
     d = json.loads(s)
     return _from_dict(ModelConfig, d.get("model", d))
+
+
+def config_from_json(s: str) -> Config:
+    """Config from a JAX checkpoint's whole-Config JSON, by the rules of the
+    JAX package's config.from_json: unknown keys, and the train and mesh
+    sections, are ignored; lists become tuples."""
+    return _from_dict(Config, json.loads(s))

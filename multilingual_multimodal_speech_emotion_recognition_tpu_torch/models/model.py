@@ -17,13 +17,12 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional, Union
 
-import numpy as np
 import torch
 
 from ..config import ModelConfig
 from ..frontend import frontend_process
 from ..ops import pooling as pooling_ops
-from ..utils.runtime import resolve_device
+from ..utils.runtime import resolve_device, to_device
 from . import classifier as clf
 from . import cross_attention as cma
 from . import fusion as fusion_mod
@@ -225,14 +224,6 @@ def model_heads(params: dict, cfg: ModelConfig, a_seq: Tensor, a_mask: Tensor,
                        audio_vec=a_vec, text_vec=t_vec)
 
 
-def _on(x, device: torch.device) -> Optional[Tensor]:
-    if x is None:
-        return None
-    if isinstance(x, Tensor):
-        return x.to(device)
-    return torch.from_numpy(np.array(x)).to(device)  # a writable copy
-
-
 def model_forward(params: dict, cfg: ModelConfig, batch: dict, *,
                   deterministic: bool = True,
                   use_openmax: bool = False) -> ModelOutput:
@@ -244,7 +235,7 @@ def model_forward(params: dict, cfg: ModelConfig, batch: dict, *,
         raise ValueError("the port is eval only: deterministic=False (dropout, "
                          "SpecAugment) is not supported")
     device = params["classifier"]["input_proj"]["kernel"].device
-    batch = {k: _on(v, device) for k, v in batch.items()}
+    batch = {k: to_device(v, device) for k, v in batch.items()}
     dtype = _compute_dtype(cfg)
     p = encoder_params(params, cfg)
     wave, quality_feats, cond_feats = frontend_features(cfg, batch)

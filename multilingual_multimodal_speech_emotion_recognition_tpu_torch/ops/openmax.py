@@ -1,7 +1,8 @@
 """OpenMax open-set adjustment (Weibull CDF over class distances).
 
 Counterpart of multilingual_multimodal_speech_emotion_recognition_tpu/
-ops/openmax.py. Weibull state: {"alpha": [C], "beta": [C], "tau": [C],
+ops/openmax.py, with its energy score; `fit_weibull` waits for the
+training slice. Weibull state: {"alpha": [C], "beta": [C], "tau": [C],
 "activation_vectors": [C, D]}.
 """
 
@@ -39,3 +40,8 @@ def openmax_adjust(weibull: dict, features: Tensor, logits: Tensor, *,
     scale = torch.where(unknown > threshold, 1.0 - reduction_scale * unknown,
                         torch.ones_like(unknown))
     return logits * scale[:, None].to(logits.dtype)
+
+
+def energy_score(logits: Tensor) -> Tensor:
+    """-logsumexp(logits) OOD score in f32 (the reference's src/utils.py:12-14)."""
+    return -torch.logsumexp(logits.float(), dim=-1)

@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain versions on the card, and
-the front-end DSP on the card against the port's CPU result.
+the front-end DSP and the TTA eval step on the card against the port's CPU
+result.
 
 Marked `cuda`: each test skips where torch sees no CUDA device. On a GPU
 machine with nvcc: python -m pytest tests/test_torch_cuda.py -m cuda -q
@@ -39,18 +40,20 @@ def _perturbed_stack(device, L, D, seed):
         for k, v in sub.items():
             if k != "kernel":
                 v += 0.1 * torch.randn(v.shape, device=device, generator=g)
-    return stacked, torch.randn(300, D, device=device, generator=g)
+    return stacked, torch.randn(640, D, device=device, generator=g)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("L,D", [(35, 512), (3, 32), (2, 768), (2, 1500)])
 def test_residual_stack_kernel_matches_plain(cuda, L, D):
-    """B=300 has more row groups than the grid has row blocks, so blocks
-    loop over several of them; D=1500 takes two tensor copies per strip
-    plane and leaves the last column group ragged."""
+    """B=300 and 640 have more row groups than the grid has row blocks, so
+    blocks loop over several of them; 20, 40 and 640 are the TTA step's
+    rows at B=4, 8 and 128 (20 ends on a partial row group); D=1500 takes
+    two tensor copies per strip plane and leaves the last column group
+    ragged."""
     stacked, x = _perturbed_stack(cuda, L, D, seed=D)
     before = rs.residual_stack.launches
-    batches = (1, 4, 11, 128, 300)
+    batches = (1, 4, 11, 20, 40, 128, 300, 640)
     for B in batches:
         got = rs.residual_stack(stacked, x[:B].contiguous())
         want = rs.residual_stack_plain(stacked, x[:B])
@@ -416,3 +419,93 @@ def test_frontend_process_reads_only_its_branch_predicates(cuda):
         torch.cuda.set_sync_debug_mode("default")
     syncs = [w for w in caught if "synchroniz" in str(w.message)]
     assert len(syncs) == 3, [str(w.message) for w in syncs]
+
+
+def _host_reads(fn) -> int:
+    """How many calls inside fn() waited for the card (torch's sync debug
+    mode warns once for each)."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def _tiny_eval_config():
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch import config as tcfg
+    return tcfg.Config(model=tcfg.ModelConfig(
+        num_labels=4, adapter_dim=8, shared_dim=16, num_heads=4, proj_dim=32,
+        classifier_layers=3, classifier_base_dim=32,
+        audio=tcfg.Wav2Vec2Config(conv_dim=(8, 8), conv_stride=(10, 8), conv_kernel=(10, 3),
+                                  hidden_size=16, num_hidden_layers=2, num_attention_heads=4,
+                                  intermediate_size=32, num_conv_pos_embeddings=16,
+                                  num_conv_pos_embedding_groups=4),
+        text=tcfg.XLMRConfig(vocab_size=100, hidden_size=16, num_hidden_layers=2,
+                             num_attention_heads=4, intermediate_size=32,
+                             max_position_embeddings=40)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [("float32", TOL), ("bfloat16", 3e-2)])
+def test_tta_step_on_the_card_matches_the_cpu(cuda, dtype, tol):
+    """The TTA views within 1e-5 (the resampler is an f32 matmul, no TF32)
+    and the 5-view step's logits within the dtype's bound, both sides fed
+    the same noise draws; one step reads the card back 4 times: the DSP's
+    three branch predicates and the logits."""
+    import dataclasses
+
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.eval import (
+        evaluate as ev)
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.models import (
+        model as tm)
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.ops import audio_dsp
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.utils.runtime import (
+        tree_to)
+    wave, mask = _dsp_batch()
+    draws = [torch.randn(wave.shape, generator=torch.Generator().manual_seed(s))
+             for s in (1, 2)]
+    want_w, want_m = audio_dsp.tta_expand(wave, mask, noise=draws)
+    got_w, got_m = audio_dsp.tta_expand(wave.to(cuda), mask.to(cuda),
+                                        noise=[d.to(cuda) for d in draws])
+    assert torch.equal(got_m.cpu(), want_m)
+    torch.testing.assert_close(got_w.cpu(), want_w, rtol=1e-5, atol=1e-5)
+
+    cfg = _tiny_eval_config()
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, compute_dtype=dtype))
+    rng = np.random.default_rng(0)
+    batch = {"audio": wave, "audio_mask": mask,
+             "text_ids": torch.from_numpy(rng.integers(2, 100, (4, 10)).astype(np.int32)),
+             "text_mask": torch.ones(4, 10), "lid_entropy": torch.ones(4),
+             "lid_conf": torch.full((4,), 0.5)}
+    params = tm.init_model(cfg.model, torch.Generator().manual_seed(0), "cpu")
+    want = ev.make_tta_eval_step(cfg, device="cpu")(params, batch, noise=draws)
+    card_params = tree_to(params, cuda)
+    card_batch = tree_to(batch, cuda)
+    step = ev.make_tta_eval_step(cfg, device=cuda)
+    got = step(card_params, card_batch, noise=[d.to(cuda) for d in draws])
+    torch.testing.assert_close(got.cpu(), want, rtol=tol, atol=tol)
+    generator = torch.Generator(device=cuda).manual_seed(0)
+    assert _host_reads(lambda: step(card_params, card_batch, generator).cpu()) == 4
+
+
+@pytest.mark.cuda
+def test_prefetch_copies_without_host_reads(cuda):
+    """The prefetch's pinned copies on its side stream read nothing back,
+    and the consumer sees every batch's values."""
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.data import prefetch
+    rng = np.random.default_rng(3)
+    host = [{"audio": rng.standard_normal((8, 16000)).astype(np.float32),
+             "labels": np.arange(8, dtype=np.int32)} for _ in range(6)]
+    seen = []
+    reads = _host_reads(lambda: seen.extend(
+        prefetch.device_prefetch(iter(host), cuda, skip=("labels",))))
+    assert reads == 0
+    assert len(seen) == len(host)
+    for (dev, hb), want in zip(seen, host):
+        assert set(dev) == {"audio"} and dev["audio"].device.type == "cuda"
+        assert hb is want
+        np.testing.assert_array_equal(dev["audio"].cpu().numpy(), want["audio"])
