@@ -49,6 +49,25 @@ Phases, one JSON line each:
               - bench.py's TTA shape: the 5-view TTA step at B=128 (640
                 rows) and B=4, 4 s clips, 32 tokens, the DSP on, then
                 logits / 1.2: ms, utt/s, peak memory (kernel A1)
+  6. train    training, through the entry points a user calls:
+              - a small model's train step and `compute_loss` with its
+                gradients on the card against the CPU (f32, dropout out):
+                losses and gradients, and the parameters after two steps,
+                within TRAIN_TOL; the frozen leaves bitwise unchanged;
+              - the flagship train step, frozen backbones (the default
+                TrainConfig), B=16, 4 s clips, 32 tokens, augmentation in
+                the step with one speed factor a batch, with the DSP in the
+                step and on zero features: ms, utt/s, peak memory, host
+                reads a step, heads changed, backbones bitwise unchanged,
+                A1 launched no time (the step takes the plain stack);
+              - the flagship unfrozen (phase 2): B=16, grad_accum 2, remat
+                "full", 3 steps: ms, peak memory, the backbones changed;
+              - the train CLI on phase 5d's 48 clips (train and validation
+                manifest), 2 epochs, batch 8, --augment --use_amp: seconds
+                per epoch, the checkpoints, the frozen store written once,
+                A1 on every validation and Weibull-fit step, a Weibull fit
+                for every class; then a resume from epoch 0 for one epoch,
+                and the eval CLI on the best checkpoint
 Then the `kernels` line and, last, {"ok": true, "device": {...}}.
 
 A tolerance `tol` is held as the JAX package's tests hold theirs:
@@ -95,6 +114,11 @@ POOL_HIDDEN = 128
 L2_FLUSH_BYTES = 128 * 2 ** 20   # written before each flushed launch; the L2 holds 50 MB
 SPIN_CYCLES = 2_000_000          # about 1 ms of the H100's clock: the host gets ahead
 KERNEL_NAMES = ("residual_stack", "conv_tail", "flash_attention", "attentive_pooling")
+TRAIN_TOL = 1e-4     # card vs CPU train step, f32, TF32 off: summation order only
+TRAIN_LR = 1e-3
+TRAIN_B = 16         # the flagship train step's batch
+TRAIN_WARMUP, TRAIN_STEPS = 2, 10
+UNFROZEN_STEPS = 3
 A1_TTA_BATCHES = (20, 40, 640)   # V*B rows of the TTA step: B=4, 8 (the CLI) and 128
 MANIFEST_CLIPS = 48
 CLIP_TEXTS = ("angry shouting words", "happy cheerful words", "sad crying words",
@@ -464,6 +488,311 @@ def write_manifest_clips(root, n: int, seed: int) -> str:
     path = root / "manifest.jsonl"
     manifest.write_manifest(path, items)
     return str(path)
+
+
+def dropout_free(cfg):
+    """cfg with every dropout rate 0 and SpecAugment off: the train step's
+    draws cannot match across devices, so card-against-CPU runs without.
+    The front-end feature projections and fusions drop out at a fixed 0.1,
+    so they are off too (the JAX package's grad-accumulation test does the
+    same)."""
+    import dataclasses
+    return dataclasses.replace(
+        cfg, classifier_dropout=0.0, cross_dropout=0.0, fusion_dropout=0.0,
+        anchor_dropout=0.0, use_quality_gates=False, use_audio_conditioning=False,
+        audio=dataclasses.replace(cfg.audio, hidden_dropout=0.0, attention_dropout=0.0,
+                                  activation_dropout=0.0, apply_spec_augment=False),
+        text=dataclasses.replace(cfg.text, hidden_dropout=0.0, attention_dropout=0.0))
+
+
+def tree_leaves(tree):
+    """(path, tensor) of a nested dict / list of tensors."""
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.utils.runtime import (
+        leaves_with_paths)
+    return list(leaves_with_paths(tree))
+
+
+def cloned(tree):
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.utils.runtime import (
+        map_leaves)
+    return map_leaves(tree, lambda _, t: t.clone())
+
+
+def train_card_against_cpu(torch, small: dict) -> dict:
+    """A small model's compute_loss, its gradients and two train steps on
+    the card against the CPU, f32, dropout out (the plain classifier stack,
+    as in training): each within TRAIN_TOL; the frozen leaves bitwise equal
+    to where they started. Returns the errors."""
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.config import TrainConfig
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.models import (
+        model as mdl)
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.train import (
+        optimizer as opt_lib, train_step as ts)
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.utils.runtime import (
+        map_leaves, tree_to)
+    cfg = dropout_free(tiny_config("float32"))
+    tcfg = TrainConfig(grad_clip=1.0)
+    batch = {**small, "labels": np.array([0, 1, 2, 3], np.int32)}
+    errs = {}
+    start = mdl.init_model(cfg, torch.Generator().manual_seed(3), "cpu")
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        params = cloned(tree_to(start, dev))
+        opt = opt_lib.make_train_optimizer(params, lr=TRAIN_LR, total_steps=4)
+        leaves = opt.trainable(params)
+        alias = {p: t.detach().requires_grad_(True) for p, t in leaves}
+        loss, _ = ts.compute_loss(map_leaves(params, lambda p, t: alias.get(p, t)), cfg, tcfg,
+                                  batch,
+                                  generator=torch.Generator(device=dev).manual_seed(0))
+        grads = torch.autograd.grad(loss, [alias[p] for p, _ in leaves], allow_unused=True,
+                                    materialize_grads=True)
+        state = opt.init(params)
+        step = ts.make_train_step(cfg, tcfg, opt, device=dev)
+        metrics = [step(params, state, batch, seed) for seed in (0, 1)]
+        runs[dev] = {"loss": loss.detach(), "grads": dict(zip((p for p, _ in leaves), grads)),
+                     "params": params, "metrics": metrics, "count": int(state["count"])}
+    cpu, card = runs["cpu"], runs["cuda"]
+    errs["loss"] = check_close("compute_loss card vs CPU", card["loss"].cpu(), cpu["loss"],
+                               TRAIN_TOL)
+    errs["grads"] = max(check_close(f"grad {p} card vs CPU", card["grads"][p].cpu(), g, TRAIN_TOL)
+                        for p, g in cpu["grads"].items())
+    # AdamW's g / sqrt(v) turns a gradient that is zero but for rounding
+    # (the attention key biases, which the softmax cancels) into a step of
+    # about lr of either sign: those leaves are held to 2 lr a step
+    scale = max(float(g.abs().max()) for g in cpu["grads"].values())
+    noise = {p for p, g in cpu["grads"].items() if float(g.abs().max()) < 1e-5 * scale}
+    errs["params_after_2_steps"] = max(
+        check_close(f"param {p} card vs CPU", dict(tree_leaves(card["params"]))[p].cpu(), t,
+                    TRAIN_TOL) for p, t in tree_leaves(cpu["params"]) if p not in noise)
+    errs["noise_gradient_leaves"] = len(noise)
+    errs["params_after_2_steps_noise_gradient"] = max(check_close(
+        f"param {p} card vs CPU", dict(tree_leaves(card["params"]))[p].cpu(),
+        dict(tree_leaves(cpu["params"]))[p], 2 * TRAIN_LR * 2) for p in noise)
+    for dev, run in runs.items():
+        for p, t in tree_leaves({k: run["params"][k] for k in ("audio_backbone", "text_backbone")}):
+            if not torch.equal(t.cpu(), dict(tree_leaves(start))[p]):
+                raise AssertionError(f"{dev}: the frozen leaf {p} changed in the train steps")
+        if run["count"] != 2:
+            raise AssertionError(f"{dev}: step count {run['count']} after 2 steps")
+    errs["step_loss"] = max(check_close("train step loss card vs CPU", g.loss.cpu(), w.loss,
+                                        TRAIN_TOL)
+                            for g, w in zip(card["metrics"], cpu["metrics"]))
+    return errs
+
+
+def train_phases(torch, wrappers, smi: str, cfg, small: dict, work: Path, manifest: str) -> int:
+    """Phase 6 (see the module docstring). Returns A1's launches on the
+    paths it drives (the train CLI's validation and Weibull-fit passes, the
+    eval CLI's steps)."""
+    import dataclasses
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.cli import (
+        eval as eval_cli, train as train_cli)
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.config import (
+        DataConfig, TrainConfig)
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.data import (
+        pipeline, tokenizer)
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.models import (
+        model as mdl)
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.ops import audio_dsp
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.train import (
+        checkpoint as ckpt, optimizer as opt_lib, train_step as ts)
+
+    # 6a. a small model's loss, gradients and train steps, card against CPU
+    emit({"phase": "agree", "path": "train_step", "dtype": "float32", "dropout": 0.0,
+          "tol": TRAIN_TOL, "max_abs_diff": train_card_against_cpu(torch, small)})
+
+    # 6b. the flagship train step, frozen backbones (the default TrainConfig)
+    params = mdl.init_model(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    frozen = cloned({k: params[k] for k in ("audio_backbone", "text_backbone")})
+    heads = cloned({k: params[k] for k in ("audio_adapter", "cross", "fusion", "classifier")})
+    tcfg = TrainConfig(batch_size=TRAIN_B, augment=True)
+    opt = opt_lib.make_train_optimizer(params, lr=1e-4, total_steps=100)
+    state = opt.init(params)
+    step = ts.make_train_step(cfg, tcfg, opt)
+    zero_feats = example_batch(TRAIN_B, T=CLIP_SAMPLES, S=TEXT_TOKENS, vocab=cfg.text.vocab_size)
+    zero_feats["labels"] = np.arange(TRAIN_B, dtype=np.int32) % cfg.num_labels
+    with_dsp = {k: v for k, v in zero_feats.items() if k not in ("quality_feats", "cond_feats")}
+    with_dsp["audio"] = speech_like(TRAIN_B, CLIP_SAMPLES, seed=11)
+    # each speed factor's resampler kernel goes to the card once, at its
+    # first use: do that for every factor before the steps are timed
+    probe = torch.zeros(1, SAMPLE_RATE, device="cuda")
+    for f in audio_dsp.SPEED_FACTORS:
+        audio_dsp.speed_perturb(probe, f)
+    seed = 0
+    for label, host_batch, want_reads in (("the DSP in the step", with_dsp, DSP_HOST_READS),
+                                          ("zero features", zero_feats, 0)):
+        batch = {k: torch.from_numpy(v).cuda() for k, v in host_batch.items()}
+        for _ in range(TRAIN_WARMUP):
+            step(params, state, batch, seed)
+            seed += 1
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(wrappers)
+        times = []
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            step(params, state, batch, seed)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            seed += 1
+        metrics, reads = host_reads(torch, lambda: step(params, state, batch, seed))
+        seed += 1
+        count = counts(wrappers)
+        peak = torch.cuda.max_memory_allocated()
+        values = {k: float(v) for k, v in metrics._asdict().items()}
+        if not all(np.isfinite(v) for v in values.values()):
+            raise AssertionError(f"train step ({label}): metrics not finite: {values}")
+        if count["residual_stack"]:
+            raise AssertionError(f"train step ({label}): residual_stack launched "
+                                 f"{count['residual_stack']} times; training takes the plain stack")
+        if reads != want_reads:
+            raise AssertionError(f"train step ({label}): {reads} host reads, not {want_reads}")
+        ms = 1e3 * sorted(times)[len(times) // 2]
+        emit({"phase": "path", "path": f"train step, frozen backbones, {label}", "card": smi,
+              "B": TRAIN_B, "seconds": 4.0, "text_tokens": TEXT_TOKENS, "augment": True,
+              "speed_per_batch": True, "warmup_steps": TRAIN_WARMUP, "steps": TRAIN_STEPS,
+              "step_ms": ms, "step_ms_all": [1e3 * t for t in times],
+              "utt_per_s": TRAIN_B / (ms / 1e3), "max_memory_allocated": peak,
+              "host_reads_per_step": reads, "metrics": values, "launches": count,
+              "step_count": int(state["count"])})
+        del batch
+    changed = [p for p, t in tree_leaves(heads)
+               if not torch.equal(t, dict(tree_leaves(params))[p])]
+    same = all(torch.equal(t, dict(tree_leaves(params))[p]) for p, t in tree_leaves(frozen))
+    if not changed or not same:
+        raise AssertionError(f"frozen train steps: {len(changed)} head leaves changed, "
+                             f"backbones bitwise unchanged: {same}")
+    emit({"phase": "path", "path": "train step, frozen backbones: what changed",
+          "head_leaves_changed": len(changed), "head_leaves": len(tree_leaves(heads)),
+          "backbones_bitwise_unchanged": same})
+    del heads, state, opt, step
+    torch.cuda.empty_cache()
+
+    # 6c. unfrozen (phase 2): B=16 as 2 microbatches, remat "full"
+    cfg_u = dataclasses.replace(cfg, remat_encoders="full")
+    tcfg_u = TrainConfig(batch_size=TRAIN_B, augment=True, freeze_backbones=False, grad_accum=2)
+    opt = opt_lib.make_train_optimizer(params, lr=1e-4, total_steps=100, freeze_backbones=False)
+    state = opt.init(params)
+    step = ts.make_train_step(cfg_u, tcfg_u, opt)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in zero_feats.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(wrappers)
+    times = []
+    for i in range(UNFROZEN_STEPS):
+        t0 = time.perf_counter()
+        metrics = step(params, state, batch, 100 + i)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    count = counts(wrappers)
+    peak = torch.cuda.max_memory_allocated()
+    moved = sum(not torch.equal(t, dict(tree_leaves(params))[p]) for p, t in tree_leaves(frozen))
+    if not np.isfinite(float(metrics.loss)) or not moved or count["residual_stack"]:
+        raise AssertionError(f"unfrozen train steps: loss {float(metrics.loss)}, {moved} "
+                             f"backbone leaves changed, launches {count}")
+    emit({"phase": "path", "path": "train step, unfrozen (phase 2), grad_accum 2, remat full",
+          "card": smi, "B": TRAIN_B, "microbatch": TRAIN_B // 2, "seconds": 4.0,
+          "text_tokens": TEXT_TOKENS, "steps": UNFROZEN_STEPS, "step_ms": [1e3 * t for t in times],
+          "max_memory_allocated": peak, "backbone_leaves_changed": moved,
+          "backbone_leaves": len(tree_leaves(frozen)), "loss": float(metrics.loss),
+          "launches": count})
+    del params, frozen, state, opt, step, batch
+    torch.cuda.empty_cache()
+
+    # 6d. the train CLI on phase 5d's clips, a resume, then the eval CLI
+    save_dir = work / "train"
+    datasets = str(work / "datasets")
+    args = ["--train_manifest", manifest, "--val_manifest", manifest, "--epochs", "2",
+            "--batch_size", "8", "--augment", "--use_amp", "--save_dir", str(save_dir),
+            "--dataset_root", datasets]
+    val_steps = pipeline.BucketedLoader(
+        pipeline.SERDataset(manifest, DataConfig(dataset_root=datasets)), batch_size=8,
+        tokenizer=tokenizer.get_tokenizer(vocab_size=cfg.text.vocab_size),
+        shuffle=False).batches_per_epoch()
+    a1 = 0
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(wrappers)
+    t0 = time.perf_counter()
+    res = train_cli.main(args)
+    cli_s = time.perf_counter() - t0
+    count = counts(wrappers)
+    peak = torch.cuda.max_memory_allocated()
+    history = res["history"]
+    del res
+    torch.cuda.empty_cache()
+    epochs = {int(d.name.split("_")[1]): d for d in save_dir.glob("epoch_*")}
+    if sorted(epochs) != [0, 1] or len(history) != 2:
+        raise AssertionError(f"train CLI: checkpoints {sorted(d.name for d in epochs.values())}, "
+                             f"{len(history)} epochs")
+    # the loop's best is the first epoch with the highest F1
+    best, last = epochs[int(np.argmax([h["val_f1"] for h in history]))], epochs[1]
+    passes = len(history) + 1 + (best != last)   # validation, Weibull fit (+ the best's)
+    if count["residual_stack"] != passes * val_steps:
+        raise AssertionError(f"train CLI: residual_stack launched {count['residual_stack']} "
+                             f"times, not {passes} passes x {val_steps} steps")
+    a1 += count["residual_stack"]
+    store = save_dir / "frozen_store"
+    store_params = store / ckpt.PARAMS_FILE
+    written = store_params.stat().st_mtime_ns
+    if (sorted(p.name for p in save_dir.glob("*/frozen_store")) or
+            not all((d / ckpt.FROZEN_REF).exists() for d in epochs.values()) or
+            any(written >= (d / ckpt.PARAMS_FILE).stat().st_mtime_ns for d in epochs.values())):
+        raise AssertionError("train CLI: the checkpoints do not share one frozen store "
+                             "written before them")
+    final, _ = ckpt.restore_checkpoint(last)
+    weibull = {k: v.cpu() for k, v in final["classifier"]["weibull"].items()}
+    fitted = [c for c in range(cfg.num_labels)
+              if weibull["alpha"][c] == 2.5 and weibull["activation_vectors"][c].abs().sum() > 0]
+    if fitted != list(range(cfg.num_labels)):
+        raise AssertionError(f"train CLI: Weibull fitted for classes {fitted} only: {weibull}")
+    ckpt_bytes = {d.name: (d / ckpt.PARAMS_FILE).stat().st_size
+                  + (d / ckpt.OPT_STATE_FILE).stat().st_size for d in epochs.values()}
+    del final
+    emit({"phase": "path", "path": "train CLI (2 epochs, batch 8, --augment --use_amp)",
+          "card": smi, "clips": MANIFEST_CLIPS, "cli_s": cli_s,
+          "epoch_s": [h["seconds"] for h in history], "val_f1": [h["val_f1"] for h in history],
+          "train_loss": [h["train_loss"] for h in history],
+          "checkpoints": sorted(ckpt_bytes), "checkpoint_bytes": ckpt_bytes,
+          "frozen_store_bytes": store_params.stat().st_size, "best": best.name,
+          "weibull_alpha": weibull["alpha"].tolist(), "weibull_beta": weibull["beta"].tolist(),
+          "val_steps": val_steps, "launches": count, "max_memory_allocated": peak})
+
+    reset_counts(wrappers)
+    t0 = time.perf_counter()
+    res = train_cli.main(args + ["--resume_from", str(epochs[0])])
+    resume_s = time.perf_counter() - t0
+    count = counts(wrappers)
+    resumed = res["history"]
+    del res
+    torch.cuda.empty_cache()
+    if [h["epoch"] for h in resumed] != [1] or count["residual_stack"] != 2 * val_steps:
+        raise AssertionError(f"resume: epochs {[h['epoch'] for h in resumed]}, "
+                             f"residual_stack launched {count['residual_stack']} times")
+    if store_params.stat().st_mtime_ns != written:
+        raise AssertionError("resume: the frozen store was written again")
+    a1 += count["residual_stack"]
+    emit({"phase": "path", "path": "train CLI --resume_from epoch_0 (1 epoch)", "card": smi,
+          "cli_s": resume_s, "epoch_s": resumed[0]["seconds"], "val_f1": resumed[0]["val_f1"],
+          "straight_val_f1": history[1]["val_f1"], "train_loss": resumed[0]["train_loss"],
+          "straight_train_loss": history[1]["train_loss"], "launches": count})
+
+    reset_counts(wrappers)
+    t0 = time.perf_counter()
+    res = eval_cli.main(["--manifest", manifest, "--checkpoint", str(best), "--batch_size", "8"])
+    eval_s = time.perf_counter() - t0
+    count = counts(wrappers)
+    if (res["logits"].shape != (MANIFEST_CLIPS, cfg.num_labels)
+            or not np.isfinite(res["logits"]).all()
+            or count["residual_stack"] != len(res["step_seconds"])):
+        raise AssertionError(f"eval CLI on {best.name}: logits {res['logits'].shape}, "
+                             f"launches {count} in {len(res['step_seconds'])} steps")
+    a1 += count["residual_stack"]
+    emit({"phase": "path", "path": "eval CLI on the trained checkpoint", "card": smi,
+          "checkpoint": best.name, "cli_s": eval_s, "weighted_f1": res["weighted_f1"],
+          "steps": len(res["step_seconds"]), "launches": count})
+    del res
+    torch.cuda.empty_cache()
+    return a1
 
 
 def reset_counts(wrappers) -> None:
@@ -1021,6 +1350,9 @@ def main() -> int:
             del batch, out
             torch.cuda.empty_cache()
         del params
+        torch.cuda.empty_cache()
+        launches["residual_stack"] += train_phases(torch, wrappers, smi, cfg, small, work,
+                                                   manifest)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()

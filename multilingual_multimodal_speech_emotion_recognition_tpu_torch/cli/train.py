@@ -1,0 +1,183 @@
+"""Training CLI of the port: train the model on the card from jsonl manifests.
+
+    python -m multilingual_multimodal_speech_emotion_recognition_tpu_torch.cli.train \\
+        --train_manifest train.jsonl --val_manifest val.jsonl --epochs 5 \\
+        --batch_size 16 --augment --use_amp --save_dir checkpoints
+
+The flags and presets (default, crema_m3, crema_final) are those of the
+repo's cli/train.py, and they build the same Config, with `--device`
+(default cuda) in place of `--platform`. `--prng_impl` selects JAX's
+random-number backend and has no counterpart here: the port's draws come
+from torch generators seeded by `--seed`. Flags whose modules are not
+ported yet exit with the ROADMAP item that ports them. Checkpoints go to
+--save_dir in the port's format (train/checkpoint.py); the port's eval
+CLI scores them. Without a card the CLI exits non-zero unless
+`--device cpu` is given.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+from typing import Optional, Sequence
+
+AUDIO_BACKBONES = ("wav2vec2-base", "wav2vec2-large", "hubert-large", "wavlm-large")
+
+
+def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
+    p = argparse.ArgumentParser(
+        description=__doc__.splitlines()[0],
+        epilog="--prng_impl (JAX's random-number backend) is not a flag of the port: "
+               "its draws come from torch generators seeded by --seed.")
+    p.add_argument("--train_manifest", type=str, default="train_70.jsonl")
+    p.add_argument("--val_manifest", type=str, default="val_20.jsonl")
+    p.add_argument("--epochs", type=int, default=5)
+    p.add_argument("--batch_size", type=int, default=4)
+    p.add_argument("--lr", type=float, default=1e-4)
+    p.add_argument("--warmup_ratio", type=float, default=0.1)
+    p.add_argument("--use_amp", action="store_true",
+                   help="bf16 compute for the encoders and heads (no loss scaler)")
+    p.add_argument("--augment", action="store_true")
+    p.add_argument("--proto_weight", type=float, default=0.05)
+    p.add_argument("--save_dir", type=str, default="checkpoints")
+    p.add_argument("--resume_from", type=str, default=None)
+    p.add_argument("--num_labels", type=int, default=4)
+    p.add_argument("--scheduler", choices=["warmup_cosine", "cosine_restarts"],
+                   default="warmup_cosine")
+    p.add_argument("--grad_clip", type=float, default=None)
+    p.add_argument("--grad_accum", type=int, default=1,
+                   help="microbatches per optimizer step (batch_size stays the "
+                        "effective batch; bounds activation memory)")
+    p.add_argument("--backbone_moment_dtype", default=None,
+                   choices=[None, "bfloat16", "float32"],
+                   help="AdamW first-moment dtype of the audio/text groups "
+                        "(bfloat16 halves it when fine-tuning unfrozen)")
+    p.add_argument("--early_stop_patience", type=int, default=None)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--dataset_root", type=str, default="datasets")
+    p.add_argument("--supcon_weight", type=float, default=0.0)
+    p.add_argument("--no_quality_gates", action="store_true")
+    p.add_argument("--no_audio_conditioning", action="store_true")
+    p.add_argument("--use_asr", action="store_true", help="not ported yet")
+    p.add_argument("--audio_backbone", choices=AUDIO_BACKBONES, default="wav2vec2-base",
+                   help="only wav2vec2-base is ported yet")
+    p.add_argument("--wav2vec2_checkpoint", type=str, default=None, help="not ported yet")
+    p.add_argument("--xlmr_checkpoint", type=str, default=None, help="not ported yet")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device to run on (default cuda; cpu for tiny models)")
+    p.add_argument("--mesh_model", type=int, default=1, help="not ported yet")
+    p.add_argument("--mesh_dcn", type=int, default=1, help="not ported yet")
+    p.add_argument("--fsdp", action="store_true", help="not ported yet")
+    p.add_argument("--fsdp_min_size", type=int, default=None, help="not ported yet")
+    p.add_argument("--autotune_buckets", type=int, default=None,
+                   help="replace the default audio buckets with N caps that minimise "
+                        "the train manifest's padded samples (data/bucketing.py)")
+    p.add_argument("--preset", choices=["default", "crema_m3", "crema_final"],
+                   default="default",
+                   help="crema_m3 = train_crema.py knobs (6-class, softened focal, "
+                        "L2-normalised proto, restarts, grad clip); crema_final = "
+                        "train_crema_final.py knobs (stronger dropout, "
+                        "consistency-augmentation CE)")
+    p.add_argument("--two_phase", action="store_true",
+                   help="phase 1 frozen encoders, phase 2 full fine-tune")
+    p.add_argument("--coordinator_address", default=None, help="not ported yet")
+    p.add_argument("--num_processes", type=int, default=None, help="not ported yet")
+    p.add_argument("--process_id", type=int, default=None, help="not ported yet")
+    return p.parse_args(argv)
+
+
+def not_ported(args: argparse.Namespace) -> Optional[str]:
+    """The message for the first flag set that needs a module not ported
+    yet, or None."""
+    if args.fsdp or args.fsdp_min_size is not None or args.mesh_model != 1 \
+            or args.mesh_dcn != 1:
+        return ("--fsdp / --fsdp_min_size / --mesh_*: parallelism is not ported yet, "
+                "ROADMAP Queue A item 16")
+    if args.coordinator_address or args.num_processes is not None \
+            or args.process_id is not None:
+        return ("--coordinator_address / --num_processes / --process_id: multi-host "
+                "training is not ported yet, ROADMAP Queue A item 16")
+    if args.wav2vec2_checkpoint or args.xlmr_checkpoint:
+        return ("--wav2vec2_checkpoint / --xlmr_checkpoint: hf_convert is not ported "
+                "yet, ROADMAP Queue A item 12")
+    if args.audio_backbone != "wav2vec2-base":
+        return (f"--audio_backbone {args.audio_backbone}: the large presets are not "
+                "ported yet, ROADMAP Queue A item 12")
+    if args.use_asr:
+        return "--use_asr: ASR (Whisper) is not ported yet, ROADMAP Queue A item 14"
+    return None
+
+
+def build_config(args: argparse.Namespace):
+    """The Config the repo's cli/train.py builds from the same flags."""
+    from ..config import Config, DataConfig, ModelConfig, TrainConfig, Wav2Vec2Config
+    train_kw = dict(
+        epochs=args.epochs, batch_size=args.batch_size, lr=args.lr,
+        warmup_ratio=args.warmup_ratio, augment=args.augment,
+        proto_weight=args.proto_weight, save_dir=args.save_dir,
+        resume_from=args.resume_from, scheduler=args.scheduler,
+        grad_clip=args.grad_clip, seed=args.seed, grad_accum=args.grad_accum,
+        backbone_moment_dtype=args.backbone_moment_dtype,
+        supcon_weight=args.supcon_weight, early_stop_patience=args.early_stop_patience)
+    num_labels = args.num_labels
+    dropout = 0.15
+    if args.preset == "crema_m3":
+        # train_crema.py:95-517: 6 classes, softened focal (beta .99, gamma 1),
+        # CE + 0.1 focal + w proto (L2-normalised), grad clip, restarts
+        num_labels = 6
+        train_kw.update(focal_weight=0.1, focal_beta=0.99, focal_gamma=1.0,
+                        proto_l2_normalize=True, proto_term_weight=args.proto_weight,
+                        scheduler="cosine_restarts", grad_clip=args.grad_clip or 1.0)
+    elif args.preset == "crema_final":
+        # train_crema_final.py:65-418: 4 classes, dropout 0.25, restarts every
+        # 3 epochs, 0.3 CE(augmented) on 30 % of steps, CE + 0.5 focal + 0.1 proto
+        num_labels = 4
+        dropout = 0.25
+        train_kw.update(focal_weight=0.5, proto_term_weight=0.1,
+                        consistency_aug_weight=0.3, consistency_aug_fraction=0.3,
+                        scheduler="cosine_restarts", restart_period_epochs=3,
+                        grad_clip=args.grad_clip or 1.0)
+    data_kw = dict(dataset_root=args.dataset_root, emit_asr_feats=args.use_asr)
+    if args.autotune_buckets:
+        from ..data import bucketing
+        caps, report = bucketing.autotune_from_manifest(
+            args.train_manifest, DataConfig(**data_kw), args.autotune_buckets)
+        print(report, f"caps={caps}")
+        data_kw["audio_buckets"] = caps
+    return Config(
+        model=ModelConfig(
+            num_labels=num_labels, classifier_dropout=dropout,
+            compute_dtype="bfloat16" if args.use_amp else "float32",
+            use_quality_gates=not args.no_quality_gates,
+            use_audio_conditioning=not args.no_audio_conditioning,
+            use_asr=args.use_asr, audio=Wav2Vec2Config()),
+        data=DataConfig(**data_kw),
+        train=TrainConfig(**train_kw))
+
+
+def main(argv: Optional[Sequence[str]] = None) -> dict:
+    """Run the CLI; returns train's (or train_two_phase's) result."""
+    args = parse_args(argv)
+    message = not_ported(args)
+    if message:
+        raise SystemExit(message)
+    from ..utils.runtime import resolve_device
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError as e:
+        raise SystemExit(f"train: {e} (--device cpu)") from e
+    from ..train import loop
+
+    cfg = build_config(args)
+    if args.two_phase:
+        result = loop.train_two_phase(cfg, train_manifest=args.train_manifest,
+                                      val_manifest=args.val_manifest, device=device)
+    else:
+        result = loop.train(cfg, train_manifest=args.train_manifest,
+                            val_manifest=args.val_manifest, device=device)
+    print(f"Best F1: {result['best_f1']:.4f}")
+    return result
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

@@ -1,15 +1,16 @@
 """Configuration of the port: its own copies of the JAX package's
-ModelConfig and DataConfig (config.py), Wav2Vec2Config (models/wav2vec2.py)
-and XLMRConfig (models/xlmr.py), with the same fields and defaults, so a
-JAX checkpoint's config JSON loads here unchanged. `Config` holds the model
-and data sections; the JAX package's train and mesh sections wait for the
-training and parallelism slices and are ignored when read."""
+ModelConfig, DataConfig and TrainConfig (config.py), Wav2Vec2Config
+(models/wav2vec2.py) and XLMRConfig (models/xlmr.py), with the same fields
+and defaults, so a JAX checkpoint's config JSON loads here unchanged.
+`Config` holds the model, data and train sections; the JAX package's mesh
+section waits for the parallelism slice (ROADMAP Queue A item 16) and is
+ignored when read."""
 
 from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,13 +114,57 @@ class DataConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    epochs: int = 5
+    batch_size: int = 4
+    lr: float = 1e-4
+    warmup_ratio: float = 0.1
+    augment: bool = False
+    # one speed factor per step (one resampler runs) instead of one per row
+    # (every factor's resampler runs); a row's factor has the same
+    # distribution across steps either way (ops/audio_dsp.augment_batch)
+    augment_speed_per_batch: bool = True
+    proto_weight: float = 0.05
+    save_dir: str = "checkpoints"
+    resume_from: Optional[str] = None
+    grad_clip: Optional[float] = None   # the reference's train_crema.py uses 1.0
+    # microbatches per optimizer step; batch_size stays the effective batch
+    # and must be divisible by it (train/train_step.py)
+    grad_accum: int = 1
+    # the audio/text groups' AdamW first moment in this dtype ("bfloat16");
+    # the second moment stays f32. None keeps f32 everywhere
+    backbone_moment_dtype: Optional[str] = None
+    seed: int = 0
+    # loss mix (the reference's train.py:151-168)
+    focal_weight: float = 0.3
+    anchor_weight: float = 0.1
+    uncertainty_weight: float = 0.05
+    proto_term_weight: float = 0.01
+    supcon_weight: float = 0.0          # defined but off in the reference
+    label_smoothing: float = 0.1
+    scheduler: str = "warmup_cosine"    # or "cosine_restarts" (train_crema.py:45-69)
+    restart_period_epochs: int = 3
+    early_stop_patience: Optional[int] = None
+    freeze_backbones: bool = True       # audio_encoder.py:15-17, text_encoder.py:13-15
+    # train_crema.py preset knobs
+    proto_l2_normalize: bool = False    # prototype loss on the L2-normalised fused vector
+    focal_beta: float = 0.9999
+    focal_gamma: float = 2.0
+    # train_crema_final.py preset knobs: extra CE on a second augmented
+    # forward, on a fraction of the optimizer steps
+    consistency_aug_weight: float = 0.0
+    consistency_aug_fraction: float = 0.3
+
+
+@dataclasses.dataclass(frozen=True)
 class Config:
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
+    train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
 
 
-_NESTED = {"model": ModelConfig, "data": DataConfig, "audio": Wav2Vec2Config,
-           "text": XLMRConfig}
+_NESTED = {"model": ModelConfig, "data": DataConfig, "train": TrainConfig,
+           "audio": Wav2Vec2Config, "text": XLMRConfig}
 
 
 def to_json(cfg) -> str:
@@ -149,7 +194,7 @@ def from_json(s: str) -> ModelConfig:
 
 
 def config_from_json(s: str) -> Config:
-    """Config from a JAX checkpoint's whole-Config JSON, by the rules of the
-    JAX package's config.from_json: unknown keys, and the train and mesh
-    sections, are ignored; lists become tuples."""
+    """Config from a whole-Config JSON (the port's or a JAX checkpoint's),
+    by the rules of the JAX package's config.from_json: unknown keys, and
+    the mesh section, are ignored; lists become tuples."""
     return _from_dict(Config, json.loads(s))

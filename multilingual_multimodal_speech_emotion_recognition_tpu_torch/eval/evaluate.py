@@ -36,7 +36,7 @@ from ..data.tokenizer import Tokenizer, get_tokenizer
 from ..models import model as mdl
 from ..ops import audio_dsp, openmax as om
 from ..utils import metrics as M
-from ..utils.runtime import resolve_device, to_device, tree_to
+from ..utils.runtime import params_on, resolve_device, to_device, tree_to
 
 Device = Optional[Union[str, torch.device]]
 
@@ -65,14 +65,6 @@ def find_optimal_temperature(val_logits: np.ndarray, val_labels: np.ndarray) -> 
     return best_t
 
 
-def _params_on(params: dict, device: torch.device) -> None:
-    """Raise unless the parameters live on `device`: a step never moves its
-    inputs to wherever the parameters happen to be."""
-    have = params["classifier"]["input_proj"]["kernel"].device
-    if have.type != device.type or (device.index is not None and have.index != device.index):
-        raise ValueError(f"the parameters live on {have}; the step runs on {device}")
-
-
 def _batch_on(batch: dict, device: torch.device) -> dict:
     return {k: to_device(v, device) for k, v in batch.items()}
 
@@ -81,11 +73,12 @@ def make_eval_step(model_cfg: ModelConfig, *, use_openmax: bool = False,
                    device: Device = None):
     """The plain eval step (the JAX package's train/train_step.py:
     make_eval_step): step(params, batch) -> (logits, features,
-    uncertainty)."""
+    uncertainty), under torch.inference_mode()."""
     dev = resolve_device(device)
 
+    @torch.inference_mode()
     def step(params: dict, batch: dict):
-        _params_on(params, dev)
+        params_on(params, dev)
         out = mdl.model_forward(params, model_cfg, batch, use_openmax=use_openmax)
         return out.logits, out.features, out.uncertainty
 
@@ -101,16 +94,18 @@ def make_tta_eval_step(cfg: Config, num_tta: int = 5, use_openmax: bool = True,
     the encoders take the compute-dtype parameters and XLM-R runs once at
     [B], its output tiled V times; `model_heads` takes the raw tree (it
     casts inside). `noise`, where given, holds the two noise views'
-    standard-normal draws [B, T]; otherwise they come from `generator`."""
+    standard-normal draws [B, T]; otherwise they come from `generator`.
+    The step runs under torch.inference_mode()."""
     if not 1 <= num_tta <= MAX_TTA_VIEWS:
         raise ValueError(f"num_tta must be in 1..{MAX_TTA_VIEWS}, not {num_tta}")
     dev = resolve_device(device)
     mcfg = cfg.model
     dtype = torch.bfloat16 if mcfg.compute_dtype == "bfloat16" else torch.float32
 
+    @torch.inference_mode()
     def step(params: dict, batch: dict, generator: Optional[torch.Generator] = None,
              noise: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
-        _params_on(params, dev)
+        params_on(params, dev)
         batch = _batch_on(batch, dev)
         V = num_tta
         B = batch["audio"].shape[0]

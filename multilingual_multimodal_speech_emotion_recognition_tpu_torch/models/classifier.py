@@ -1,21 +1,25 @@
-"""Deep residual OpenMax classifier with class-anchor clustering, eval only.
+"""Deep residual OpenMax classifier with class-anchor clustering.
 
 Counterpart of multilingual_multimodal_speech_emotion_recognition_tpu/
 models/classifier.py:
 
-  input_projection (Linear -> LN -> ReLU)
-  35 residual layers, x = LN_i(x); x = x + block_i(x), through the
-      residual-stack kernel (ops/residual_stack.py)
-  features = Linear(base, base//2) -> LN -> ReLU
+  input_projection (Linear -> LN -> ReLU -> Dropout)
+  35 residual layers, x = LN_i(x); x = x + block_i(x), with
+      block_i = LN -> Linear -> ReLU -> Dropout -> Linear -> Dropout
+  features = Linear(base, base//2) -> LN -> ReLU -> Dropout
   logits   = Linear(base//2, C), optionally OpenMax-adjusted
-  anchor similarities and pull loss; uncertainty head
+  anchor similarities and pull loss (anchor_dropout on the projection);
+  uncertainty head (Linear -> ReLU -> Dropout -> Linear -> sigmoid)
 
-The residual layers stay stacked [L, ...] as the kernel reads them.
+The route of the residual layers is the JAX package's: the eval forward
+(deterministic) takes the residual-stack kernel (ops/residual_stack.py:
+the plain version on the CPU), training the plain loop with dropout,
+under autograd. The layers stay stacked [L, ...] as the kernel reads them.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -66,19 +70,45 @@ def init_classifier(init: layers.Init, input_dim: int, num_labels: int,
     }
 
 
-def classifier_features(params: dict, x: Tensor) -> Tensor:
+def _residual_stack(stacked: dict, x: Tensor, *, dropout_rate: float,
+                    generator: Optional[torch.Generator]) -> Tensor:
+    """The training route: the L layers as a loop, dropout in each block."""
+    h = x
+    for i in range(stacked["block_lin1"]["kernel"].shape[0]):
+        layer = layers.layer_at(stacked, i)
+        y = layers.layer_norm(layer["ln_pre"], h)
+        b = layers.layer_norm(layer["block_ln"], y)
+        b = torch.relu(layers.linear(layer["block_lin1"], b))
+        b = layers.dropout(generator, b, dropout_rate, False)
+        b = layers.linear(layer["block_lin2"], b)
+        h = y + layers.dropout(generator, b, dropout_rate, False)
+    return h
+
+
+def classifier_features(params: dict, x: Tensor, *, dropout_rate: float = 0.15,
+                        generator: Optional[torch.Generator] = None,
+                        deterministic: bool = True) -> Tensor:
     """Penultimate [B, base//2] features."""
     h = layers.linear(params["input_proj"], x)
     h = torch.relu(layers.layer_norm(params["input_ln"], h))
-    h = rs.residual_stack(params["layers"], h)
+    h = layers.dropout(generator, h, dropout_rate, deterministic)
+    if deterministic:
+        h = rs.residual_stack(params["layers"], h)
+    else:
+        h = _residual_stack(params["layers"], h, dropout_rate=dropout_rate,
+                            generator=generator)
     f = layers.linear(params["out_proj1"], h)
-    return torch.relu(layers.layer_norm(params["out_ln"], f))
+    f = torch.relu(layers.layer_norm(params["out_ln"], f))
+    return layers.dropout(generator, f, dropout_rate, deterministic)
 
 
-def anchor_clustering(params: dict, features: Tensor):
+def anchor_clustering(params: dict, features: Tensor, *, dropout_rate: float = 0.1,
+                      generator: Optional[torch.Generator] = None,
+                      deterministic: bool = True):
     """ClassAnchorClustering forward: (similarities [B, C], pull loss)."""
     p = layers.linear(params["projection"], features)
     p = torch.relu(layers.layer_norm(params["proj_ln"], p))
+    p = layers.dropout(generator, p, dropout_rate, deterministic)
     eps = 1e-12  # torch F.normalize default
     p_norm = p / torch.linalg.vector_norm(p, dim=-1, keepdim=True).clamp(min=eps)
     a = params["class_anchors"]
@@ -86,17 +116,24 @@ def anchor_clustering(params: dict, features: Tensor):
     raw = p_norm @ a_norm.T
     sims = raw / params["temperature"]
     # clamp(sim - rowmax(sim), 0) is identically zero; kept for parity
-    pull = (raw - raw.max(dim=1, keepdim=True).values).clamp(min=0.0).mean()
+    pull = (raw - raw.amax(dim=1, keepdim=True)).clamp(min=0.0).mean()
     return sims, pull
 
 
-def classifier_forward(params: dict, x: Tensor, *,
-                       use_openmax: bool = False) -> ClassifierOutput:
+def classifier_forward(params: dict, x: Tensor, *, use_openmax: bool = False,
+                       dropout_rate: float = 0.15, anchor_dropout: float = 0.1,
+                       generator: Optional[torch.Generator] = None,
+                       deterministic: bool = True) -> ClassifierOutput:
     """Full classifier head; `use_openmax` applies the Weibull adjustment."""
-    feats = classifier_features(params, x)
-    sims, anchor_loss = anchor_clustering(params["anchor"], feats)
+    feats = classifier_features(params, x, dropout_rate=dropout_rate,
+                                generator=generator, deterministic=deterministic)
+    sims, anchor_loss = anchor_clustering(params["anchor"], feats,
+                                          dropout_rate=anchor_dropout,
+                                          generator=generator,
+                                          deterministic=deterministic)
     logits = layers.linear(params["out_proj2"], feats)
     u = torch.relu(layers.linear(params["uncertainty"]["lin1"], feats))
+    u = layers.dropout(generator, u, dropout_rate, deterministic)
     u = torch.sigmoid(layers.linear(params["uncertainty"]["lin2"], u))
     if use_openmax:
         logits = openmax_ops.openmax_adjust(params["weibull"], feats.float(),

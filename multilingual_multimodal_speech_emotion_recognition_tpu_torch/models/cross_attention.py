@@ -1,6 +1,7 @@
 """Bidirectional cross-modal attention: audio queries text and text queries
 audio, each direction through a shared space with key-padding masks, then
-residual + LayerNorm.
+residual + LayerNorm. In training, dropout at cross_dropout on each
+direction's attention weights and on its output before the residual.
 
 Counterpart of multilingual_multimodal_speech_emotion_recognition_tpu/
 models/cross_attention.py; the attention is layers.mha, as there.
@@ -38,20 +39,25 @@ def init_cross_modal_attention(init: layers.Init, audio_dim: int,
 def cross_modal_attention(params: dict, audio_seq: Tensor, text_seq: Tensor,
                           audio_mask: Optional[Tensor] = None,
                           text_mask: Optional[Tensor] = None, *,
-                          num_heads: int = 8) -> Tuple[Tensor, Tensor]:
+                          num_heads: int = 8, dropout_rate: float = 0.1,
+                          generator: Optional[torch.Generator] = None,
+                          deterministic: bool = True) -> Tuple[Tensor, Tensor]:
     """audio_seq: [B, Sa, Da]; text_seq: [B, St, Dt]; masks 1 valid / 0 pad.
     Returns (audio_enhanced [B, Sa, Da], text_enhanced [B, St, Dt])."""
+    drop = dict(dropout_rate=dropout_rate, generator=generator, deterministic=deterministic)
     a_ctx = layers.mha(params["attn_a"], layers.linear(params["q_a"], audio_seq),
                        layers.linear(params["k_t"], text_seq),
                        layers.linear(params["v_t"], text_seq),
-                       num_heads=num_heads, key_padding_mask=text_mask)
-    audio_enh = layers.layer_norm(
-        params["norm_a"], audio_seq + layers.linear(params["out_a"], a_ctx))
+                       num_heads=num_heads, key_padding_mask=text_mask, **drop)
+    a_out = layers.dropout(generator, layers.linear(params["out_a"], a_ctx),
+                           dropout_rate, deterministic)
+    audio_enh = layers.layer_norm(params["norm_a"], audio_seq + a_out)
 
     t_ctx = layers.mha(params["attn_t"], layers.linear(params["q_t"], text_seq),
                        layers.linear(params["k_a"], audio_seq),
                        layers.linear(params["v_a"], audio_seq),
-                       num_heads=num_heads, key_padding_mask=audio_mask)
-    text_enh = layers.layer_norm(
-        params["norm_t"], text_seq + layers.linear(params["out_t"], t_ctx))
+                       num_heads=num_heads, key_padding_mask=audio_mask, **drop)
+    t_out = layers.dropout(generator, layers.linear(params["out_t"], t_ctx),
+                           dropout_rate, deterministic)
+    text_enh = layers.layer_norm(params["norm_t"], text_seq + t_out)
     return audio_enh, text_enh

@@ -1,12 +1,15 @@
 """Gated modality fusion: project the pooled audio and text vectors to
 proj_dim with 2-layer MLPs, gate each with a sigmoid, normalise the two
-gates and return the weighted sum.
+gates and return the weighted sum. In training, dropout at fusion_dropout
+after each projection's ReLU.
 
 Counterpart of multilingual_multimodal_speech_emotion_recognition_tpu/
 models/fusion.py.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -30,12 +33,17 @@ def init_fusion(init: layers.Init, audio_dim: int, text_dim: int,
     }
 
 
-def fusion(params: dict, audio_vec: Tensor, text_vec: Tensor) -> Tensor:
+def fusion(params: dict, audio_vec: Tensor, text_vec: Tensor, *,
+           dropout_rate: float = 0.1, generator: Optional[torch.Generator] = None,
+           deterministic: bool = True) -> Tensor:
     """audio_vec: [B, Da], text_vec: [B, Dt] -> fused [B, proj_dim]."""
-    a = layers.linear(params["proj_a2"],
-                      torch.relu(layers.linear(params["proj_a1"], audio_vec)))
-    t = layers.linear(params["proj_t2"],
-                      torch.relu(layers.linear(params["proj_t1"], text_vec)))
+    def proj(first, second, x):
+        h = torch.relu(layers.linear(params[first], x))
+        h = layers.dropout(generator, h, dropout_rate, deterministic)
+        return layers.linear(params[second], h)
+
+    a = proj("proj_a1", "proj_a2", audio_vec)
+    t = proj("proj_t1", "proj_t2", text_vec)
     wa = torch.sigmoid(layers.linear(
         params["gate_a2"], torch.relu(layers.linear(params["gate_a1"], a))))
     wt = torch.sigmoid(layers.linear(

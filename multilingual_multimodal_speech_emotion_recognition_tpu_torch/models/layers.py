@@ -6,7 +6,9 @@ parameters with the JAX package's keys and layouts.
   * ``mha``:        separate q/k/v/out projections, each a ``linear``
 
 Counterpart of multilingual_multimodal_speech_emotion_recognition_tpu/
-models/layers.py. Eval only: there is no dropout.
+models/layers.py. `dropout` draws its masks from an explicit
+torch.Generator on the tensor's device; it is the identity in the eval
+forward (deterministic) and at rate 0.
 
 `Init` draws parameters with the JAX package's init distributions (the
 values differ: torch and JAX generators give other numbers); on the meta
@@ -20,6 +22,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from . import remat as remat_lib
 
 Tensor = torch.Tensor
 
@@ -112,6 +116,20 @@ def layer_norm(params: dict, x: Tensor, *, eps: float = 1e-5) -> Tensor:
     return y.to(x.dtype)
 
 
+def dropout(generator: Optional[torch.Generator], x: Tensor, rate: float,
+            deterministic: bool) -> Tensor:
+    """Inverted dropout: keep with probability 1 - rate and scale by
+    1 / (1 - rate), in x's dtype. The mask is drawn with torch.rand from
+    `generator`, which must live on x's device (F.dropout takes none)."""
+    if deterministic or rate <= 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout: the training forward needs a torch.Generator")
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, 0.0)
+
+
 def init_mha(init: Init, embed_dim: int) -> dict:
     """torch.nn.MultiheadAttention's init, its packed in_proj split into
     q/k/v linears (xavier over the packed [3E, E] matrix, zero biases)."""
@@ -125,13 +143,16 @@ def init_mha(init: Init, embed_dim: int) -> dict:
 
 
 def mha(params: dict, q: Tensor, k: Tensor, v: Tensor, *, num_heads: int,
-        key_padding_mask: Optional[Tensor] = None) -> Tensor:
+        key_padding_mask: Optional[Tensor] = None, dropout_rate: float = 0.0,
+        generator: Optional[torch.Generator] = None,
+        deterministic: bool = True) -> Tensor:
     """Multi-head attention with torch.nn.MultiheadAttention's semantics.
 
     q: [B, Sq, E], k/v: [B, Sk, E]; key_padding_mask: [B, Sk] with 1 for
     VALID (the inverse of torch's convention). The logits are divided by
     sqrt(Dh) after the product, masked with -inf, and the softmax runs in
-    f32; its weights are cast back to q.dtype before the value product.
+    f32; its weights are cast back to q.dtype, and dropped out in training,
+    before the value product.
     """
     B, Sq, E = q.shape
     Sk = k.shape[1]
@@ -146,6 +167,7 @@ def mha(params: dict, q: Tensor, k: Tensor, v: Tensor, *, num_heads: int,
         pad = (key_padding_mask == 0)[:, None, None, :]
         logits = logits.masked_fill(pad, -math.inf)
     attn = torch.softmax(logits, dim=-1).to(q.dtype)
+    attn = dropout(generator, attn, dropout_rate, deterministic)
     ctx = torch.einsum("bhqk,bkhd->bqhd", attn, vh).reshape(B, Sq, E)
     return linear(params["out"], ctx)
 
@@ -162,23 +184,38 @@ def key_mask_bias(mask: Tensor) -> Tensor:
 
 
 def post_ln_encoder_stack(stacked: dict, h: Tensor, attn_bias: Tensor, *,
-                          num_heads: int, eps: float) -> Tensor:
+                          num_heads: int, eps: float, attention_dropout: float = 0.0,
+                          hidden_dropout: float = 0.0, activation_dropout: float = 0.0,
+                          generator: Optional[torch.Generator] = None,
+                          deterministic: bool = True,
+                          remat: remat_lib.RematSpec = False) -> Tensor:
     """Post-LN transformer layers over stacked [L, ...] parameters, shared
     by wav2vec2 and XLM-R. q is scaled by 1/sqrt(Dh) before the product;
-    the softmax runs in f32 and is cast back to h.dtype."""
+    the softmax runs in f32 and is cast back to h.dtype. In training the
+    dropout sites are the JAX package's: attention weights
+    (attention_dropout), the attention output and the FFN output
+    (hidden_dropout), the FFN's GELU output (activation_dropout; XLM-R has
+    none). `remat` checkpoints each layer (models/remat.py)."""
     B, S, E = h.shape
     H = num_heads
     D = E // H
     scale = D ** -0.5
-    for i in range(stacked["q"]["kernel"].shape[0]):
-        layer = layer_at(stacked, i)
+
+    def body(h: Tensor, layer: dict, g: Optional[torch.Generator]) -> Tensor:
         q = (linear(layer["q"], h) * scale).reshape(B, S, H, D)
         k = linear(layer["k"], h).reshape(B, S, H, D)
         v = linear(layer["v"], h).reshape(B, S, H, D)
         logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() + attn_bias
         attn = torch.softmax(logits, dim=-1).to(h.dtype)
+        attn = dropout(g, attn, attention_dropout, deterministic)
         ctx = torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(B, S, E)
-        h = layer_norm(layer["attn_ln"], h + linear(layer["out"], ctx), eps=eps)
-        f = linear(layer["ffn_out"], gelu(linear(layer["ffn_in"], h)))
-        h = layer_norm(layer["final_ln"], h + f, eps=eps)
+        ctx = dropout(g, linear(layer["out"], ctx), hidden_dropout, deterministic)
+        h = layer_norm(layer["attn_ln"], h + ctx, eps=eps)
+        f = dropout(g, gelu(linear(layer["ffn_in"], h)), activation_dropout, deterministic)
+        f = dropout(g, linear(layer["ffn_out"], f), hidden_dropout, deterministic)
+        return layer_norm(layer["final_ln"], h + f, eps=eps)
+
+    run = remat_lib.apply_remat(body, remat)
+    for i in range(stacked["q"]["kernel"].shape[0]):
+        h = run(h, layer_at(stacked, i), generator)
     return h

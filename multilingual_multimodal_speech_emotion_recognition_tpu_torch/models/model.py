@@ -1,4 +1,4 @@
-"""The full SER model's eval forward over one nested dict of parameters.
+"""The full SER model's forward over one nested dict of parameters.
 
 Counterpart of multilingual_multimodal_speech_emotion_recognition_tpu/
 models/model.py: wav2vec2 (+ adapter, + quality/conditioning feature
@@ -8,13 +8,23 @@ OpenMax classifier. With compute_dtype "bfloat16" the encoders,
 cross-attention, pooling and fusion run on bf16 copies of their
 parameters, while the classifier runs in f32 on the raw parameters.
 
-Eval only: `deterministic=False` raises. A batch without `quality_feats` /
-`cond_feats` runs the front-end DSP (quality gates, then conditioning) on
-its waveform first, where the config enables it.
+A batch without `quality_feats` / `cond_feats` runs the front-end DSP
+(quality gates, then conditioning) on its waveform first, where the config
+enables it.
+
+`deterministic=False` is the training forward: dropout at the JAX
+package's sites and rates (the feature projections' and fusions' 0.1
+included), SpecAugment where asked, all drawn from one torch.Generator on
+the parameters' device, and the classifier's plain residual stack. An
+encoder whose parameters carry no gradient (frozen backbones: the train
+step passes them detached, as JAX stop_gradients them) runs under
+torch.no_grad(), so none of its activations are kept; its dropout and
+SpecAugment still apply, as in the reference's train() mode.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple, Optional, Union
 
 import torch
@@ -22,7 +32,7 @@ import torch
 from ..config import ModelConfig
 from ..frontend import frontend_process
 from ..ops import pooling as pooling_ops
-from ..utils.runtime import resolve_device, to_device
+from ..utils.runtime import leaves_with_paths, resolve_device, to_device
 from . import classifier as clf
 from . import cross_attention as cma
 from . import fusion as fusion_mod
@@ -126,40 +136,63 @@ def _adapter(p: dict, x: Tensor) -> Tensor:
     return x + layers.linear(p["up"], torch.relu(layers.linear(p["down"], x)))
 
 
-def _feature_proj(p: dict, feats: Tensor) -> Tensor:
-    """Linear(d, 32) -> ReLU -> Linear(32, d)."""
-    return layers.linear(p["lin2"], torch.relu(layers.linear(p["lin1"], feats)))
+FEATURE_DROPOUT = 0.1  # the feature projections' and fusions' fixed rate
 
 
-def _feature_fuse(p: dict, seq: Tensor, feats: Tensor) -> Tensor:
-    """Broadcast per-utterance features along time, concat, Linear + ReLU."""
+def _feature_proj(p: dict, feats: Tensor, generator: Optional[torch.Generator],
+                  deterministic: bool) -> Tensor:
+    """Linear(d, 32) -> ReLU -> Dropout(0.1) -> Linear(32, d)."""
+    h = torch.relu(layers.linear(p["lin1"], feats))
+    h = layers.dropout(generator, h, FEATURE_DROPOUT, deterministic)
+    return layers.linear(p["lin2"], h)
+
+
+def _feature_fuse(p: dict, seq: Tensor, feats: Tensor,
+                  generator: Optional[torch.Generator], deterministic: bool) -> Tensor:
+    """Broadcast per-utterance features along time, concat, Linear + ReLU
+    + Dropout(0.1)."""
     B, S, _ = seq.shape
     f = feats[:, None, :].expand(B, S, feats.shape[-1]).to(seq.dtype)
-    return torch.relu(layers.linear(p["lin"], torch.cat([seq, f], dim=-1)))
+    y = torch.relu(layers.linear(p["lin"], torch.cat([seq, f], dim=-1)))
+    return layers.dropout(generator, y, FEATURE_DROPOUT, deterministic)
+
+
+def _frozen(tree) -> contextlib.AbstractContextManager:
+    """torch.no_grad() where no leaf of `tree` wants a gradient, so that a
+    frozen encoder keeps no activations; else nothing."""
+    if any(t.requires_grad for _, t in leaves_with_paths(tree)):
+        return contextlib.nullcontext()
+    return torch.no_grad()
 
 
 def encode_audio(params: dict, cfg: ModelConfig, wave: Tensor, wave_mask: Tensor,
                  *, quality_feats: Optional[Tensor] = None,
-                 cond_feats: Optional[Tensor] = None):
+                 cond_feats: Optional[Tensor] = None, deterministic: bool = True,
+                 generator: Optional[torch.Generator] = None,
+                 spec_augment: bool = False):
     """[B, T] waveform -> ([B, T', ah] sequence, [B, T'] frame mask)."""
-    seq, frame_mask = w2v.wav2vec2_encode(params["audio_backbone"], cfg.audio,
-                                          wave, wave_mask)
+    with _frozen(params["audio_backbone"]):
+        seq, frame_mask = w2v.wav2vec2_encode(
+            params["audio_backbone"], cfg.audio, wave, wave_mask,
+            deterministic=deterministic, generator=generator,
+            spec_augment=spec_augment, remat=cfg.remat_encoders)
     seq = _adapter(params["audio_adapter"], seq)
+    drop = (generator, deterministic)
     uq, uc = cfg.use_quality_gates, cfg.use_audio_conditioning
     if uq or uc:
         B = seq.shape[0]
         q = quality_feats if quality_feats is not None else seq.new_zeros((B, 8))
         c = cond_feats if cond_feats is not None else seq.new_zeros((B, 12))
         if uq:
-            q = _feature_proj(params["quality_proj"], q.to(seq.dtype))
+            q = _feature_proj(params["quality_proj"], q.to(seq.dtype), *drop)
         if uc:
-            c = _feature_proj(params["cond_proj"], c.to(seq.dtype))
+            c = _feature_proj(params["cond_proj"], c.to(seq.dtype), *drop)
         if uq and uc:
-            seq = _feature_fuse(params["combined_fusion"], seq, torch.cat([q, c], -1))
+            seq = _feature_fuse(params["combined_fusion"], seq, torch.cat([q, c], -1), *drop)
         elif uq:
-            seq = _feature_fuse(params["quality_fusion"], seq, q)
+            seq = _feature_fuse(params["quality_fusion"], seq, q, *drop)
         else:
-            seq = _feature_fuse(params["conditioning_fusion"], seq, c)
+            seq = _feature_fuse(params["conditioning_fusion"], seq, c, *drop)
     if cfg.pad_frames_valid:
         seq = seq * frame_mask[..., None].to(seq.dtype)
         frame_mask = torch.ones_like(frame_mask)
@@ -167,14 +200,19 @@ def encode_audio(params: dict, cfg: ModelConfig, wave: Tensor, wave_mask: Tensor
 
 
 def encode_text(params: dict, cfg: ModelConfig, input_ids: Tensor,
-                text_mask: Tensor, *, asr_feats: Optional[Tensor] = None):
+                text_mask: Tensor, *, asr_feats: Optional[Tensor] = None,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
     """[B, S] token ids -> ([B, S, th] sequence, [B, S] mask)."""
-    seq = xlmr_mod.xlmr_encode(params["text_backbone"], cfg.text, input_ids,
-                               text_mask)
+    with _frozen(params["text_backbone"]):
+        seq = xlmr_mod.xlmr_encode(params["text_backbone"], cfg.text, input_ids,
+                                   text_mask, deterministic=deterministic,
+                                   generator=generator, remat=cfg.remat_encoders)
     seq = _adapter(params["text_adapter"], seq)
     if cfg.use_asr and asr_feats is not None:
-        asr_p = _feature_proj(params["asr_proj"], asr_feats.to(seq.dtype))
-        seq = _feature_fuse(params["asr_fusion"], seq, asr_p)
+        drop = (generator, deterministic)
+        asr_p = _feature_proj(params["asr_proj"], asr_feats.to(seq.dtype), *drop)
+        seq = _feature_fuse(params["asr_fusion"], seq, asr_p, *drop)
     return seq, text_mask
 
 
@@ -203,20 +241,26 @@ def frontend_features(cfg: ModelConfig, batch: dict):
 
 
 def model_heads(params: dict, cfg: ModelConfig, a_seq: Tensor, a_mask: Tensor,
-                t_seq: Tensor, t_mask: Tensor, *,
+                t_seq: Tensor, t_mask: Tensor, *, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None,
                 use_openmax: bool = False) -> ModelOutput:
     """Cross-modal attention -> pooling x2 -> gated fusion -> classifier,
     from encoded sequences; `params` is the raw (uncast) tree."""
     dtype = _compute_dtype(cfg)
     p = {k: cast_floating(params[k], dtype) for k in _HEAD_KEYS}
-    a_enh, t_enh = cma.cross_modal_attention(p["cross"], a_seq, t_seq, a_mask,
-                                             t_mask, num_heads=cfg.num_heads)
+    a_enh, t_enh = cma.cross_modal_attention(
+        p["cross"], a_seq, t_seq, a_mask, t_mask, num_heads=cfg.num_heads,
+        dropout_rate=cfg.cross_dropout, generator=generator, deterministic=deterministic)
     a_vec = pooling_ops.attentive_stats_pooling(p["pool_a"], a_enh, a_mask)
     t_vec = pooling_ops.attentive_stats_pooling(p["pool_t"], t_enh, t_mask)
-    fused = fusion_mod.fusion(p["fusion"], a_vec, t_vec)
+    fused = fusion_mod.fusion(p["fusion"], a_vec, t_vec, dropout_rate=cfg.fusion_dropout,
+                              generator=generator, deterministic=deterministic)
     # the classifier stays f32 on the raw parameters
     out = clf.classifier_forward(params["classifier"], fused.float(),
-                                 use_openmax=use_openmax)
+                                 use_openmax=use_openmax,
+                                 dropout_rate=cfg.classifier_dropout,
+                                 anchor_dropout=cfg.anchor_dropout,
+                                 generator=generator, deterministic=deterministic)
     return ModelOutput(logits=out.logits, uncertainty=out.uncertainty,
                        anchor_loss=out.anchor_loss,
                        anchor_similarities=out.anchor_similarities,
@@ -226,22 +270,27 @@ def model_heads(params: dict, cfg: ModelConfig, a_seq: Tensor, a_mask: Tensor,
 
 def model_forward(params: dict, cfg: ModelConfig, batch: dict, *,
                   deterministic: bool = True,
-                  use_openmax: bool = False) -> ModelOutput:
-    """Eval forward. batch: audio [B, T] f32, audio_mask [B, T], text_ids
-    [B, S] ints, text_mask [B, S]; optional quality_feats [B, 8],
-    cond_feats [B, 12], asr_feats [B, 8]. Tensors or numpy arrays; they go
-    to the device the parameters live on."""
-    if not deterministic:
-        raise ValueError("the port is eval only: deterministic=False (dropout, "
-                         "SpecAugment) is not supported")
+                  generator: Optional[torch.Generator] = None,
+                  use_openmax: bool = False,
+                  spec_augment: bool = False) -> ModelOutput:
+    """batch: audio [B, T] f32, audio_mask [B, T], text_ids [B, S] ints,
+    text_mask [B, S]; optional quality_feats [B, 8], cond_feats [B, 12],
+    asr_feats [B, 8]. Tensors or numpy arrays; they go to the device the
+    parameters live on. `deterministic=False` (training) draws dropout, and
+    SpecAugment where `spec_augment`, from `generator`, which it needs."""
+    if not deterministic and generator is None:
+        raise ValueError("model_forward: the training forward (deterministic=False) "
+                         "needs a torch.Generator on the parameters' device")
     device = params["classifier"]["input_proj"]["kernel"].device
     batch = {k: to_device(v, device) for k, v in batch.items()}
     dtype = _compute_dtype(cfg)
     p = encoder_params(params, cfg)
     wave, quality_feats, cond_feats = frontend_features(cfg, batch)
+    drop = dict(deterministic=deterministic, generator=generator)
     a_seq, a_mask = encode_audio(p, cfg, wave.to(dtype), batch["audio_mask"],
-                                 quality_feats=quality_feats, cond_feats=cond_feats)
+                                 quality_feats=quality_feats, cond_feats=cond_feats,
+                                 spec_augment=spec_augment, **drop)
     t_seq, t_mask = encode_text(p, cfg, batch["text_ids"], batch["text_mask"],
-                                asr_feats=batch.get("asr_feats"))
+                                asr_feats=batch.get("asr_feats"), **drop)
     return model_heads(params, cfg, a_seq, a_mask, t_seq, t_mask,
-                       use_openmax=use_openmax)
+                       use_openmax=use_openmax, **drop)

@@ -1,4 +1,4 @@
-"""wav2vec2-base audio encoder, eval only.
+"""wav2vec2-base audio encoder.
 
 Counterpart of multilingual_multimodal_speech_emotion_recognition_tpu/
 models/wav2vec2.py for the base preset: masked waveform normalisation, the
@@ -6,6 +6,8 @@ models/wav2vec2.py for the base preset: masked waveform normalisation, the
 projection, grouped positional conv, encoder LN and the post-LN layers with
 an additive -inf frame mask. Padded batches give each clip the result it
 would get alone, because every statistic is taken over valid samples only.
+In training (deterministic=False) SpecAugment's time masks and the
+dropout sites of the JAX package apply, drawn from a torch.Generator.
 
 Layout: the conv stack runs channels-first ([B, C, T], torch's NCW) so that
 it needs no transposes, and conv kernels are stored [C_out, C_in/groups, K]
@@ -16,14 +18,14 @@ wav2vec2_encode return [B, T, C] like their JAX counterparts.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from ..config import Wav2Vec2Config
 from ..ops import conv_tail
-from . import layers
+from . import layers, remat as remat_lib
 
 Tensor = torch.Tensor
 
@@ -147,19 +149,43 @@ def feature_encoder(params: dict, cfg: Wav2Vec2Config, wave: Tensor,
     return x, frame_mask
 
 
-def _encoder_stack(stacked: dict, cfg: Wav2Vec2Config, h: Tensor,
-                   attn_bias: Tensor) -> Tensor:
+def _spec_augment(generator: torch.Generator, cfg: Wav2Vec2Config, hidden: Tensor,
+                  frame_mask: Tensor, masked_embed: Tensor) -> Tensor:
+    """SpecAugment time masks as the JAX package draws them: Bernoulli
+    starts with p = mask_time_prob / mask_time_length * 2, each dilated
+    over the mask_time_length frames from it on (a left-padded max-pool),
+    kept on valid frames only; masked frames become masked_spec_embed."""
+    B, T, _ = hidden.shape
+    width = cfg.mask_time_length
+    p_start = cfg.mask_time_prob / width * 2.0
+    starts = (torch.rand((B, T), generator=generator, device=hidden.device)
+              < p_start).float()
+    masked = F.max_pool1d(F.pad(starts[:, None, :], (width - 1, 0)), width, stride=1)[:, 0]
+    masked = masked * frame_mask.float()
+    return torch.where(masked[..., None] > 0, masked_embed.to(hidden.dtype), hidden)
+
+
+def _encoder_stack(stacked: dict, cfg: Wav2Vec2Config, h: Tensor, attn_bias: Tensor, *,
+                   generator: Optional[torch.Generator] = None, deterministic: bool = True,
+                   remat: remat_lib.RematSpec = False) -> Tensor:
     """The post-LN layers; attn_bias: additive f32 [B, 1, 1, S]."""
-    return layers.post_ln_encoder_stack(stacked, h, attn_bias,
-                                        num_heads=cfg.num_attention_heads,
-                                        eps=cfg.layer_norm_eps)
+    return layers.post_ln_encoder_stack(
+        stacked, h, attn_bias, num_heads=cfg.num_attention_heads, eps=cfg.layer_norm_eps,
+        attention_dropout=cfg.attention_dropout, hidden_dropout=cfg.hidden_dropout,
+        activation_dropout=cfg.activation_dropout, generator=generator,
+        deterministic=deterministic, remat=remat)
 
 
 def wav2vec2_encode(params: dict, cfg: Wav2Vec2Config, wave: Tensor,
-                    sample_mask: Tensor, *,
-                    normalize: bool = True) -> Tuple[Tensor, Tensor]:
+                    sample_mask: Tensor, *, normalize: bool = True,
+                    deterministic: bool = True,
+                    generator: Optional[torch.Generator] = None,
+                    spec_augment: bool = False,
+                    remat: remat_lib.RematSpec = False) -> Tuple[Tensor, Tensor]:
     """wave: [B, T] raw 16 kHz audio in the compute dtype; sample_mask:
-    [B, T] (1 valid). Returns (hidden [B, T', H], frame_mask [B, T'])."""
+    [B, T] (1 valid). Returns (hidden [B, T', H], frame_mask [B, T']).
+    Training draws SpecAugment (where `spec_augment` and the config ask
+    for it) and dropout from `generator`."""
     check_supported(cfg)
     if normalize:
         wave = normalize_waveform(wave, sample_mask).to(wave.dtype)
@@ -167,6 +193,8 @@ def wav2vec2_encode(params: dict, cfg: Wav2Vec2Config, wave: Tensor,
     feats, frame_mask = feature_encoder(params, cfg, wave, sample_mask)
     h = layers.layer_norm(params["feat_proj"]["ln"], feats, eps=cfg.layer_norm_eps)
     h = layers.linear(params["feat_proj"]["proj"], h)
+    if spec_augment and not deterministic and cfg.apply_spec_augment:
+        h = _spec_augment(generator, cfg, h, frame_mask, params["masked_spec_embed"])
     h = h * frame_mask[..., None].to(h.dtype)
     pos = _conv1d(params["pos_conv"], h.transpose(1, 2), 1,
                   groups=cfg.num_conv_pos_embedding_groups,
@@ -174,5 +202,7 @@ def wav2vec2_encode(params: dict, cfg: Wav2Vec2Config, wave: Tensor,
     # an even kernel with padding k//2 gives T+1 frames: keep the first T
     pos = layers.gelu(pos[:, :, : h.shape[1]].transpose(1, 2))
     h = layers.layer_norm(params["encoder_ln"], h + pos, eps=cfg.layer_norm_eps)
-    h = _encoder_stack(params["layers"], cfg, h, layers.key_mask_bias(frame_mask))
+    h = layers.dropout(generator, h, cfg.hidden_dropout, deterministic)
+    h = _encoder_stack(params["layers"], cfg, h, layers.key_mask_bias(frame_mask),
+                       generator=generator, deterministic=deterministic, remat=remat)
     return h, frame_mask

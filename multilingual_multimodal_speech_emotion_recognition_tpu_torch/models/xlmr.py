@@ -1,6 +1,8 @@
-"""XLM-RoBERTa text encoder, eval only: word + position + token-type row 0
+"""XLM-RoBERTa text encoder: word + position + token-type row 0
 embeddings with RoBERTa's pad-offset position ids, then post-LN layers with
-an additive -inf mask on padded keys. Returns the last hidden state.
+an additive -inf mask on padded keys. Returns the last hidden state. In
+training the JAX package's dropout sites apply (after the embedding LN;
+attention weights, attention output and FFN output in each layer).
 
 Counterpart of multilingual_multimodal_speech_emotion_recognition_tpu/
 models/xlmr.py.
@@ -8,10 +10,12 @@ models/xlmr.py.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from ..config import XLMRConfig
-from . import layers
+from . import layers, remat as remat_lib
 
 Tensor = torch.Tensor
 
@@ -43,7 +47,9 @@ def position_ids_from_input_ids(input_ids: Tensor, pad_token_id: int) -> Tensor:
 
 
 def xlmr_encode(params: dict, cfg: XLMRConfig, input_ids: Tensor,
-                attention_mask: Tensor) -> Tensor:
+                attention_mask: Tensor, *, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None,
+                remat: remat_lib.RematSpec = False) -> Tensor:
     """input_ids: [B, S] ints; attention_mask: [B, S] (1 valid).
     Returns the last hidden state [B, S, hidden_size]."""
     emb = params["embeddings"]
@@ -51,6 +57,9 @@ def xlmr_encode(params: dict, cfg: XLMRConfig, input_ids: Tensor,
     pos_ids = position_ids_from_input_ids(ids, cfg.pad_token_id)
     h = emb["word"][ids] + emb["position"][pos_ids] + emb["token_type"][0][None, None, :]
     h = layers.layer_norm(emb["ln"], h, eps=cfg.layer_norm_eps)
+    h = layers.dropout(generator, h, cfg.hidden_dropout, deterministic)
     return layers.post_ln_encoder_stack(
         params["layers"], h, layers.key_mask_bias(attention_mask),
-        num_heads=cfg.num_attention_heads, eps=cfg.layer_norm_eps)
+        num_heads=cfg.num_attention_heads, eps=cfg.layer_norm_eps,
+        attention_dropout=cfg.attention_dropout, hidden_dropout=cfg.hidden_dropout,
+        generator=generator, deterministic=deterministic, remat=remat)

@@ -1,9 +1,9 @@
-"""Batched audio DSP on the device for eval-time TTA: resampling, speed
-perturbation, noise at a target SNR, and the 5-view expansion.
+"""Batched audio DSP on the device: resampling, speed perturbation, noise
+at a target SNR, the eval-time 5-view TTA expansion and the train-time
+augmentation.
 
-Counterpart of the eval half of the JAX package's ops/audio_dsp.py (its
-train-time `augment_batch` waits for the training slice). The JAX package
-leaves these to XLA; here they are plain PyTorch, no kernel of their own.
+Counterpart of the JAX package's ops/audio_dsp.py. The JAX package leaves
+these to XLA; here they are plain PyTorch, no kernel of their own.
 
   * `sinc_resample` — torchaudio's resample algorithm (windowed sinc, hann
     window, lowpass_filter_width=6, rolloff=0.99): the [new, K] polyphase
@@ -17,13 +17,16 @@ leaves these to XLA; here they are plain PyTorch, no kernel of their own.
     is passed in (`noise`), so tests can feed JAX's own draws.
   * `tta_expand` — [orig, speed .95, speed 1.05, noise 15 dB, noise 20 dB]
     [:V], stacked view-major as one [V*B, T] batch.
+  * `augment_batch` — the reference's online augmentation (train.py:
+    130-143): speed perturbation with probability 0.5, then noise at
+    U[10, 20) dB SNR with probability 0.5, per row.
 """
 
 from __future__ import annotations
 
 import functools
 import math
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -159,3 +162,89 @@ def tta_expand(wave: Tensor, mask: Tensor, *, num_tta: int = 5,
         views.append((add_noise_snr(wave, mask, snr, generator=generator, noise=draw), mask))
     return (torch.cat([v[0] for v in views], dim=0),
             torch.cat([v[1] for v in views], dim=0))
+
+
+SPEED_FACTORS = (0.9, 0.95, 1.0, 1.05, 1.1)
+
+
+class AugmentDraws(NamedTuple):
+    """The random draws of one `augment_batch` call, in the JAX package's
+    order (`jax.random.split(key, 5)`: k_sp, k_spf, k_np, k_snr, k_noise)."""
+    speed: Tensor            # [B] bool: speed-perturb this row
+    factor: object           # int (one factor for the batch) or [B] ints
+    noise: Tensor            # [B] bool: add noise to this row
+    snr_db: Tensor           # [B] f32 in [snr_range)
+    normal: Tensor           # [B, T] f32 standard normal
+
+
+def draw_augmentation(B: int, T: int, *, generator: torch.Generator,
+                      host_generator: Optional[torch.Generator] = None,
+                      speed_per_batch: bool = False, num_factors: int = len(SPEED_FACTORS),
+                      speed_prob: float = 0.5, noise_prob: float = 0.5,
+                      snr_range: Tuple[float, float] = (10.0, 20.0)) -> AugmentDraws:
+    """Draws for `augment_batch` on `generator`'s device. With
+    speed_per_batch the factor index comes from `host_generator`, a CPU
+    generator, as a Python int: the step picks its resampler on the host
+    without reading a value back from the card."""
+    dev = generator.device
+    rand = lambda *shape: torch.rand(shape, generator=generator, device=dev)
+    if speed_per_batch:
+        if host_generator is None:
+            raise ValueError("augment_batch: speed_per_batch draws its factor "
+                             "from a CPU host_generator")
+        factor = int(torch.randint(num_factors, (), generator=host_generator))
+    else:
+        factor = torch.randint(num_factors, (B,), generator=generator, device=dev)
+    return AugmentDraws(
+        speed=rand(B) < speed_prob, factor=factor, noise=rand(B) < noise_prob,
+        snr_db=snr_range[0] + (snr_range[1] - snr_range[0]) * rand(B),
+        normal=torch.randn((B, T), generator=generator, device=dev))
+
+
+def augment_batch(wave: Tensor, mask: Tensor, *,
+                  generator: Optional[torch.Generator] = None,
+                  host_generator: Optional[torch.Generator] = None,
+                  draws: Optional[AugmentDraws] = None,
+                  speed_factors: Sequence[float] = SPEED_FACTORS,
+                  speed_prob: float = 0.5, noise_prob: float = 0.5,
+                  snr_range: Tuple[float, float] = (10.0, 20.0),
+                  sample_rate: int = 16000,
+                  speed_per_batch: bool = False) -> Tuple[Tensor, Tensor]:
+    """Train-time augmentation of [B, T] rows: returns (wave, mask). A row
+    is speed-perturbed with probability speed_prob by a factor from
+    `speed_factors` (the reference draws U[0.9, 1.1]; a fixed set keeps
+    the resamplers few), its mask rebuilt from the new length; then noised
+    with probability noise_prob at an SNR drawn from snr_range.
+
+    Per sample, every factor's branch is computed and each row gathers its
+    own; with speed_per_batch one factor serves the batch and only its
+    branch runs. `draws` (e.g. JAX's own, for a test) replaces the draws
+    from `generator` / `host_generator` (see `draw_augmentation`)."""
+    B, T = wave.shape
+    if draws is None:
+        if generator is None:
+            raise ValueError("augment_batch needs a generator or draws")
+        draws = draw_augmentation(B, T, generator=generator, host_generator=host_generator,
+                                  speed_per_batch=speed_per_batch,
+                                  num_factors=len(speed_factors), speed_prob=speed_prob,
+                                  noise_prob=noise_prob, snr_range=snr_range)
+    lengths = mask.to(torch.int32).sum(-1, dtype=torch.int32)
+    if isinstance(draws.factor, int):
+        f = speed_factors[draws.factor]
+        picked = speed_perturb(wave, f, sample_rate)
+        picked_len = speed_perturb_length(lengths, f, sample_rate)
+    else:
+        stacked = torch.stack([speed_perturb(wave, f, sample_rate) for f in speed_factors])
+        stacked_len = torch.stack([speed_perturb_length(lengths, f, sample_rate)
+                                   for f in speed_factors])
+        idx = draws.factor.to(wave.device, torch.int64)
+        picked = stacked.gather(0, idx[None, :, None].expand(1, B, T))[0]
+        picked_len = stacked_len.gather(0, idx[None, :])[0]
+    speed = draws.speed.to(wave.device)
+    wave2 = torch.where(speed[:, None], picked, wave)
+    len2 = torch.where(speed, picked_len.clamp(max=T), lengths)
+    mask2 = (torch.arange(T, device=wave.device)[None, :] < len2[:, None]).to(mask.dtype)
+    noised = add_noise_snr(wave2, mask2, draws.snr_db.to(wave.device),
+                           noise=draws.normal.to(wave.device))
+    wave3 = torch.where(draws.noise.to(wave.device)[:, None], noised, wave2)
+    return wave3 * mask2, mask2

@@ -21,7 +21,13 @@ round trip of the exchanged rows, the LNs and each product's reduction.
 See the source for the phases and the ring.
 
 `residual_stack` takes the plain version for a tensor on the CPU only; for a
-CUDA tensor it launches the kernel or raises.
+CUDA tensor it launches the kernel or raises. The kernel has no backward
+and writes its output through a raw pointer, so that output carries no
+autograd history: on a CUDA tensor the wrapper raises where autograd is
+recording and x or a layer parameter wants a gradient, instead of cutting
+the gradients above it to zero without a word. The training forward takes
+the classifier's plain loop (models/classifier.py), as the JAX package
+keeps its scan there.
 """
 
 from __future__ import annotations
@@ -162,11 +168,18 @@ def build() -> None:
 def residual_stack(stacked: dict, x: Tensor) -> Tensor:
     """Eval-path residual stack. stacked: the classifier's [L, ...] layer
     parameters; x: [B, D] f32. A CPU tensor takes the plain version; a CUDA
-    tensor launches the kernel, or raises on what the kernel does not take."""
+    tensor launches the kernel, or raises on what the kernel does not take,
+    a gradient included."""
     if x.device.type == "cpu":
         return residual_stack_plain(stacked, x)
     if x.device.type != "cuda":
         raise ValueError(f"residual_stack: no kernel for device {x.device}")
+    if torch.is_grad_enabled() and (x.requires_grad or any(
+            t.requires_grad for sub in stacked.values() for t in sub.values())):
+        raise RuntimeError(
+            "residual_stack: the CUDA kernel has no backward; run the eval forward "
+            "under torch.no_grad() or torch.inference_mode(), and train through "
+            "the classifier's plain stack (deterministic=False)")
     w1 = stacked["block_lin1"]["kernel"]
     w2 = stacked["block_lin2"]["kernel"]
     L, D = w1.shape[:2]

@@ -1,0 +1,197 @@
+"""The training step: augmentation, the multi-term loss, its gradients and
+the per-group AdamW update, on one device.
+
+Counterpart of multilingual_multimodal_speech_emotion_recognition_tpu/
+train/train_step.py. The loss mix is the reference's (train.py:151-168):
+
+  loss = label-smoothed CE
+       + focal_weight       * class-balanced focal
+       + anchor_weight      * anchor pull loss (identically 0, kept)
+       + uncertainty_weight * mean(uncertainty * correct)
+       + proto_term_weight  * prototype loss      (at proto_weight > 0)
+       + supcon_weight      * SupCon               (at supcon_weight > 0)
+       + consistency_aug_weight * CE of a second augmented forward, on a
+         consistency_aug_fraction of the optimizer steps
+
+Frozen backbones are passed to the forward detached, as JAX stops their
+gradient, so their encoders run without autograd (models/model.py). The
+trainable leaves enter the forward as detached aliases that want a
+gradient: the caller's tensors never carry autograd state, and the update
+writes into them in place. Randomness comes from a torch.Generator on the
+step's device and, for the per-batch speed factor, a CPU generator, both
+seeded from the step's `seed` (an int, the role of JAX's per-step key):
+a step reads nothing back from the card for it.
+
+The non-finite guard (the reference's train_crema.py:360-368): where the
+gradients' global norm or the loss is not finite, the gradients are
+zeroed and the optimizer applies nothing, the step count included
+(train/optimizer.py), decided on the card by a 0-dim `ok` flag.
+"""
+
+from __future__ import annotations
+
+from typing import List, NamedTuple, Optional, Union
+
+import torch
+
+from ..config import ModelConfig, TrainConfig
+from ..models import model as mdl
+from ..models import prototypes as protos
+from ..ops import audio_dsp, losses
+from ..utils.runtime import map_leaves, params_on, resolve_device, to_device
+from .checkpoint import FROZEN_SUBTREES
+from .optimizer import AdamW
+
+Tensor = torch.Tensor
+
+
+class StepMetrics(NamedTuple):
+    loss: Tensor
+    ce: Tensor
+    focal: Tensor
+    anchor: Tensor
+    uncertainty: Tensor
+    proto: Tensor
+    supcon: Tensor
+    accuracy: Tensor
+
+
+def stop_backbone_gradients(params: dict) -> dict:
+    """The tree with the backbones detached (JAX's stop_gradient)."""
+    return {k: (map_leaves(v, lambda _, t: t.detach()) if k in FROZEN_SUBTREES else v)
+            for k, v in params.items()}
+
+
+def compute_loss(params: dict, model_cfg: ModelConfig, train_cfg: TrainConfig,
+                 batch: dict, *, generator: Optional[torch.Generator] = None,
+                 deterministic: bool = False):
+    """(loss, StepMetrics) of one batch; training draws dropout and
+    SpecAugment from `generator`. The eval forward (deterministic=True)
+    takes the classifier's kernel, which has no backward: on the card it
+    raises under autograd."""
+    if train_cfg.freeze_backbones:
+        params = stop_backbone_gradients(params)
+    out = mdl.model_forward(params, model_cfg, batch, deterministic=deterministic,
+                            generator=generator, use_openmax=False,
+                            spec_augment=not deterministic)
+    labels = to_device(batch["labels"], out.logits.device).long()
+    zero = torch.zeros((), device=out.logits.device)
+    ce = losses.label_smoothing_cross_entropy(out.logits, labels,
+                                              smoothing=train_cfg.label_smoothing)
+    focal = losses.class_balanced_focal_loss(out.logits, labels,
+                                             num_classes=model_cfg.num_labels,
+                                             beta=train_cfg.focal_beta,
+                                             gamma=train_cfg.focal_gamma)
+    unc = losses.uncertainty_regularizer(out.uncertainty, out.logits, labels)
+    loss = (ce + train_cfg.focal_weight * focal + train_cfg.anchor_weight * out.anchor_loss
+            + train_cfg.uncertainty_weight * unc)
+    proto = sup = zero
+    if train_cfg.proto_weight > 0:
+        fused = out.fused
+        if train_cfg.proto_l2_normalize:
+            # train_crema.py:330: the prototype loss on the L2-normalised fused vector
+            fused = fused / torch.linalg.vector_norm(fused, dim=-1, keepdim=True).clamp(min=1e-8)
+        proto = protos.prototype_loss(params["prototypes"], fused, labels)
+        loss = loss + train_cfg.proto_term_weight * proto
+    if train_cfg.supcon_weight > 0:
+        sup = losses.supcon_loss(out.fused, labels)
+        loss = loss + train_cfg.supcon_weight * sup
+    acc = (out.logits.argmax(-1) == labels).float().mean()
+    return loss, StepMetrics(loss=loss, ce=ce, focal=focal, anchor=out.anchor_loss,
+                             uncertainty=unc, proto=proto, supcon=sup, accuracy=acc)
+
+
+def global_norm(tensors: List[Tensor]) -> Tensor:
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
+
+
+def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig, optimizer: AdamW, *,
+                    device: Optional[Union[str, torch.device]] = None):
+    """step(params, opt_state, batch, seed) -> StepMetrics (0-dim tensors on
+    the device). Updates params and opt_state in place. With
+    train_cfg.augment the reference's online augmentation (train.py:
+    130-143) runs inside the step, on the device. grad_accum > 1 runs the
+    batch as that many microbatches, one backward each (the focal loss's
+    class weights per microbatch), gradients and metrics averaged; a batch
+    they do not divide raises. The consistency CE's gate is drawn once per
+    optimizer batch, so microbatches never disagree on it."""
+    dev = resolve_device(device)
+    generator = torch.Generator(device=dev)
+    host_generator = torch.Generator()
+    accum = max(1, int(train_cfg.grad_accum))
+    consistency = train_cfg.consistency_aug_weight > 0
+
+    def augment(mb: dict) -> dict:
+        wave, mask = audio_dsp.augment_batch(
+            mb["audio"], mb["audio_mask"], generator=generator,
+            host_generator=host_generator,
+            speed_per_batch=train_cfg.augment_speed_per_batch)
+        return {**mb, "audio": wave, "audio_mask": mask}
+
+    def loss_fn(p: dict, mb: dict, gate: Optional[Tensor]):
+        loss, metrics = compute_loss(p, model_cfg, train_cfg, mb, generator=generator)
+        if consistency:
+            # train_crema_final.py:283-292: a second forward on another
+            # augmented view, its CE added on the gated steps
+            fwd = stop_backbone_gradients(p) if train_cfg.freeze_backbones else p
+            out2 = mdl.model_forward(fwd, model_cfg, augment(mb), deterministic=False,
+                                     generator=generator)
+            ce2 = losses.label_smoothing_cross_entropy(
+                out2.logits, mb["labels"], smoothing=train_cfg.label_smoothing)
+            loss = loss + torch.where(gate, train_cfg.consistency_aug_weight * ce2, 0.0)
+            metrics = metrics._replace(loss=loss)
+        return loss, metrics
+
+    def step(params: dict, opt_state: dict, batch: dict, seed: int) -> StepMetrics:
+        params_on(params, dev)
+        batch = {k: to_device(v, dev) for k, v in batch.items()}
+        generator.manual_seed(seed)
+        host_generator.manual_seed(seed)
+        if train_cfg.augment:
+            batch = augment(batch)
+        gate = (torch.rand((), generator=generator, device=dev)
+                < train_cfg.consistency_aug_fraction) if consistency else None
+        paths = [p for p, _ in optimizer.trainable(params)]
+        wanted, leaves = set(paths), {}
+
+        def alias(path, t):
+            if path not in wanted:
+                return t
+            leaves[path] = t.detach().requires_grad_(True)
+            return leaves[path]
+
+        view = map_leaves(params, alias)
+        inputs = [leaves[p] for p in paths]
+
+        def grads_of(mb):
+            loss, metrics = loss_fn(view, mb, gate)
+            return torch.autograd.grad(loss, inputs, allow_unused=True,
+                                       materialize_grads=True), metrics
+
+        if accum == 1:
+            grads, metrics = grads_of(batch)
+            grads = list(grads)
+        else:
+            b0 = batch["labels"].shape[0]
+            if b0 % accum != 0:
+                raise ValueError(f"batch size {b0} not divisible by grad_accum {accum}")
+            m = b0 // accum
+            rows = {k for k, v in batch.items() if v.ndim >= 1 and v.shape[0] == b0}
+            grads, per_micro = None, []
+            for i in range(accum):
+                mb = {k: (v[i * m:(i + 1) * m] if k in rows else v) for k, v in batch.items()}
+                g, metrics = grads_of(mb)
+                per_micro.append(metrics)
+                if grads is None:
+                    grads = list(g)
+                else:
+                    torch._foreach_add_(grads, g)
+            torch._foreach_div_(grads, float(accum))
+            metrics = StepMetrics(*(torch.stack(v).mean() for v in zip(*per_micro)))
+        ok = torch.isfinite(global_norm(grads)) & torch.isfinite(metrics.loss)
+        grads = [torch.where(ok, g, 0.0) for g in grads]
+        optimizer.apply_(params, dict(zip(paths, grads)), opt_state, ok)
+        return StepMetrics(*(v.detach() for v in metrics))
+
+    return step
+

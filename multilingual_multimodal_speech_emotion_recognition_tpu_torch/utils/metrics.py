@@ -1,13 +1,16 @@
-"""Classification metrics (numpy).
+"""Classification metrics (numpy) and the training log.
 
-A copy of the JAX package's utils/metrics.py (its MetricsWriter, a
-training log, is not ported yet). weighted_f1 mirrors the reference's
-src/utils.py:6-10 (sklearn f1_score(average='weighted')) in plain numpy.
+A copy of the JAX package's utils/metrics.py. weighted_f1 mirrors the
+reference's src/utils.py:6-10 (sklearn f1_score(average='weighted')) in
+plain numpy; MetricsWriter appends the train loop's JSONL records.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+import json
+import time
+from pathlib import Path
+from typing import Dict, Optional, Sequence, Union
 
 import numpy as np
 
@@ -82,3 +85,18 @@ def classification_report(labels, preds, target_names: Sequence[str]) -> str:
                  f"{weighted_f1(preds, labels, len(target_names)):9.3f} "
                  f"{int(support.sum()):9d}")
     return "\n".join(lines)
+
+
+class MetricsWriter:
+    """Append-only JSONL metrics stream: one JSON object a line, with a
+    "time" (time.time()) unless the record carries one."""
+
+    def __init__(self, path: Union[str, Path]):
+        self.path = Path(path)
+        self.path.parent.mkdir(parents=True, exist_ok=True)
+
+    def write(self, record: Dict) -> None:
+        record = dict(record)
+        record.setdefault("time", time.time())
+        with open(self.path, "a") as f:
+            f.write(json.dumps(record, default=float) + "\n")

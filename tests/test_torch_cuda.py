@@ -509,3 +509,157 @@ def test_prefetch_copies_without_host_reads(cuda):
         assert set(dev) == {"audio"} and dev["audio"].device.type == "cuda"
         assert hb is want
         np.testing.assert_array_equal(dev["audio"].cpu().numpy(), want["audio"])
+
+
+@pytest.mark.cuda
+def test_residual_stack_kernel_raises_under_autograd(cuda):
+    """The kernel writes its output through a raw pointer and has no
+    backward: where autograd records and x or a layer parameter wants a
+    gradient, the wrapper raises instead of returning a tensor without
+    history. Under no_grad it launches; on the CPU the plain version keeps
+    its gradients."""
+    stacked, x = _perturbed_stack(cuda, 3, 32, seed=1)
+    x = x[:4].contiguous()
+    with pytest.raises(RuntimeError, match="no backward"):
+        rs.residual_stack(stacked, x.clone().requires_grad_(True))
+    wants = {k: {n: (t.clone().requires_grad_(True) if n == "kernel" else t)
+                 for n, t in v.items()} for k, v in stacked.items()}
+    with pytest.raises(RuntimeError, match="no backward"):
+        rs.residual_stack(wants, x)
+    with torch.no_grad():
+        before = rs.residual_stack.launches
+        out = rs.residual_stack(wants, x.clone().requires_grad_(True))
+        assert rs.residual_stack.launches == before + 1 and out.grad_fn is None
+    cpu_x = x.cpu().requires_grad_(True)
+    cpu_stack = {k: {n: t.cpu() for n, t in v.items()} for k, v in stacked.items()}
+    (g,) = torch.autograd.grad(rs.residual_stack(cpu_stack, cpu_x).sum(), [cpu_x])
+    assert g.abs().sum() > 0
+
+
+def _train_setup(device, seed=0):
+    """A tiny model with every dropout out (card and CPU draw differently),
+    its optimizer and state, and a labelled batch with precomputed
+    features."""
+    import dataclasses
+
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.models import (
+        model as tm)
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.train import (
+        optimizer as topt)
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.utils.runtime import (
+        tree_to)
+    m = _tiny_eval_config().model
+    cfg = dataclasses.replace(
+        m, classifier_dropout=0.0, cross_dropout=0.0, fusion_dropout=0.0, anchor_dropout=0.0,
+        use_quality_gates=False, use_audio_conditioning=False, frontend_dsp=False,
+        audio=dataclasses.replace(m.audio, hidden_dropout=0.0, attention_dropout=0.0,
+                                  activation_dropout=0.0, apply_spec_augment=False),
+        text=dataclasses.replace(m.text, hidden_dropout=0.0, attention_dropout=0.0))
+    params = tree_to(tm.init_model(cfg, torch.Generator().manual_seed(seed), "cpu"), device)
+    opt = topt.make_train_optimizer(params, lr=1e-3, total_steps=8)
+    rng = np.random.default_rng(seed)
+    batch = {"audio": torch.from_numpy(0.1 * rng.standard_normal((4, 8000)).astype(np.float32)),
+             "audio_mask": torch.ones(4, 8000),
+             "text_ids": torch.from_numpy(rng.integers(2, 100, (4, 10)).astype(np.int32)),
+             "text_mask": torch.ones(4, 10), "labels": torch.arange(4, dtype=torch.int32),
+             "quality_feats": torch.zeros(4, 8), "cond_feats": torch.zeros(4, 12)}
+    return cfg, params, opt, opt.init(params), tree_to(batch, device)
+
+
+def _noise_leaves(cfg, params, opt, batch):
+    """The trainable leaves whose gradient is below 1e-5 of the largest
+    one: zero but for rounding (the attention key biases)."""
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.config import TrainConfig
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.train import (
+        train_step as tts)
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.utils import runtime
+    alias = {p: t.detach().requires_grad_(True) for p, t in opt.trainable(params)}
+    view = runtime.map_leaves(params, lambda p, t: alias.get(p, t))
+    loss, _ = tts.compute_loss(view, cfg, TrainConfig(), batch, generator=torch.Generator())
+    grads = torch.autograd.grad(loss, list(alias.values()), allow_unused=True,
+                                materialize_grads=True)
+    scale = max(float(g.abs().max()) for g in grads)
+    return {p for p, g in zip(alias, grads) if float(g.abs().max()) < 1e-5 * scale}
+
+
+@pytest.mark.cuda
+def test_train_step_on_the_card_matches_the_cpu(cuda):
+    """Two steps, f32, dropout out: parameters within TOL of the CPU's,
+    except the leaves whose gradient is zero but for rounding, which
+    AdamW's g / sqrt(v) moves by about lr of either sign a step (held to
+    2 lr a step); the frozen backbones bitwise unchanged; the count 2."""
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.config import TrainConfig
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.train import (
+        optimizer as topt, train_step as tts)
+    noise = _noise_leaves(*[_train_setup("cpu")[i] for i in (0, 1, 2, 4)])
+    runs = {}
+    for dev in ("cpu", cuda):
+        cfg, params, opt, state, batch = _train_setup(dev)
+        start = {p: t.clone() for p, t in topt.leaves_with_paths(params)}
+        step = tts.make_train_step(cfg, TrainConfig(grad_clip=1.0), opt, device=dev)
+        for seed in (0, 1):
+            step(params, state, batch, seed)
+        assert int(state["count"]) == 2
+        for p, t in topt.leaves_with_paths(params):
+            if opt.labels[p] == topt.FROZEN:
+                assert torch.equal(t, start[p]), p
+        runs[str(dev)] = dict(topt.leaves_with_paths(params))
+    for p, want in runs["cpu"].items():
+        tol = 2 * 1e-3 * 2 if p in noise else TOL
+        torch.testing.assert_close(runs[str(cuda)][p].cpu(), want, rtol=tol, atol=tol, msg=p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("augment", [False, True])
+def test_train_step_reads_nothing_back_with_precomputed_features(cuda, augment):
+    """With the features in the batch (no DSP) a train step, augmentation
+    with one speed factor a batch included, reads no value back from the
+    card: the non-finite guard and the step count stay on it."""
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.config import TrainConfig
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.ops import audio_dsp
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.train import (
+        train_step as tts)
+    cfg, params, opt, state, batch = _train_setup(cuda)
+    step = tts.make_train_step(cfg, TrainConfig(augment=augment), opt, device=cuda)
+    probe = torch.zeros(1, 16000, device=cuda)
+    for f in audio_dsp.SPEED_FACTORS:       # each resampler kernel reaches the card once
+        audio_dsp.speed_perturb(probe, f)
+    step(params, state, batch, 0)
+    assert _host_reads(lambda: step(params, state, batch, 1)) == 0
+    assert int(state["count"]) == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", ["full", "dots"])
+def test_remat_on_the_card_gives_the_gradients_of_no_remat(cuda, remat):
+    """Unfrozen, every dropout and SpecAugment on, one CUDA generator seed:
+    a checkpointed layer replays its generator's state in the backward, so
+    the gradients are those without remat (up to the order of the atomic
+    adds of the embedding gradient)."""
+    import dataclasses
+
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.config import TrainConfig
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.models import (
+        model as tm)
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.train import (
+        train_step as tts)
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.utils import runtime
+    base = _tiny_eval_config().model
+    base = dataclasses.replace(base, frontend_dsp=False, audio=dataclasses.replace(
+        base.audio, mask_time_prob=0.3, mask_time_length=3))
+    params = tm.init_model(base, torch.Generator(device=cuda).manual_seed(0), cuda)
+    _, _, _, _, batch = _train_setup(cuda)
+    grads = {}
+    for mode in ("none", remat):
+        cfg = dataclasses.replace(base, remat_encoders=mode)
+        alias = {p: t.detach().requires_grad_(True)
+                 for p, t in runtime.leaves_with_paths(params)}
+        view = runtime.map_leaves(params, lambda p, t: alias[p])
+        loss, _ = tts.compute_loss(view, cfg, TrainConfig(freeze_backbones=False), batch,
+                                   generator=torch.Generator(device=cuda).manual_seed(5))
+        grads[mode] = dict(zip(alias, torch.autograd.grad(loss, list(alias.values()),
+                                                          allow_unused=True,
+                                                          materialize_grads=True)))
+    for p, g in grads["none"].items():
+        torch.testing.assert_close(grads[remat][p], g, rtol=1e-5, atol=1e-6, msg=p)
+    assert grads["none"]["audio_backbone/layers/q/kernel"].abs().sum() > 0

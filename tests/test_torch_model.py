@@ -151,7 +151,8 @@ def test_unported_paths_raise():
     _, port_cfg, tree = _tiny_tree()
     params = weights.params_from_jax(tree, port_cfg, device="cpu")
     batch = _numpy(tiny_batch())
-    with pytest.raises(ValueError, match="eval only"):
+    # the training forward draws its dropout from an explicit generator
+    with pytest.raises(ValueError, match="needs a torch.Generator"):
         tm.model_forward(params, port_cfg, batch, deterministic=False)
     no_feats = {k: v for k, v in batch.items() if k not in ("quality_feats", "cond_feats")}
     dsp_cfg = dataclasses.replace(port_cfg, frontend_dsp=True)

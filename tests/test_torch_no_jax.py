@@ -37,5 +37,6 @@ def test_port_imports_without_jax():
                    "ops.audio_dsp", "ops.openmax", "data.manifest", "data.audio_io",
                    "data.native", "data.tokenizer", "data.bucketing", "data.pipeline",
                    "data.prefetch", "utils.metrics", "eval.evaluate", "train.checkpoint",
-                   "cli.eval"):
+                   "cli.eval", "models.remat", "models.prototypes", "ops.losses",
+                   "train.optimizer", "train.train_step", "train.loop", "cli.train"):
         assert port + module in report["imported"]
