@@ -68,6 +68,30 @@ Phases, one JSON line each:
                 A1 on every validation and Weibull-fit step, a Weibull fit
                 for every class; then a resume from epoch 0 for one epoch,
                 and the eval CLI on the best checkpoint
+  7. serve    serving, through the entry points a user calls, on phase 5d's
+              full-width checkpoint (bf16, the DSP on):
+              - the export CLI: the 4:32,8:16 buckets (torch.export programs,
+                A1 as `ser_torch::residual_stack`, the DSP's gates as
+                `torch.cond`), a 4 s B=32 int16-wire artifact and a 2-layer
+                student: seconds and bytes of each;
+              - the exported program against the eager forward on worst-case
+                and speech-like rows (both branches of the gates): logits,
+                uncertainty and features within AGREE_TOL, one A1 launch a
+                predict, the int16 wire equal to the f32 wire on PCM, ms a
+                predict at both buckets;
+              - `serving.serve` in a thread on a free port: a lone request,
+                a closed loop of 256 base64 requests of 1-8 s from 32
+                clients, 32 float-list requests; requests/s, latency
+                quantiles, batch fill, no batch errors, one A1 launch a
+                batch, /healthz and /stats, then the drain;
+              - the cascade tier (2-layer student, flagship teacher, the
+                threshold at the median of the student's confidences):
+                escalation rate;
+              - the infer CLI with and without TTA (`--export` JSON), and
+                the interface's ms a call after a warm call;
+              - `DataFlowPipeline.process_long_audio` on a 12 s clip (ms a
+                stage), `StreamingRecognizer` over it in 0.5 s chunks and
+                `flush`, `verify_integration`; peak memory
 Then the `kernels` line and, last, {"ok": true, "device": {...}}.
 
 A tolerance `tol` is held as the JAX package's tests hold theirs:
@@ -123,6 +147,16 @@ A1_TTA_BATCHES = (20, 40, 640)   # V*B rows of the TTA step: B=4, 8 (the CLI) an
 MANIFEST_CLIPS = 48
 CLIP_TEXTS = ("angry shouting words", "happy cheerful words", "sad crying words",
               "neutral plain words")
+SERVE_BUCKETS = "4:32,8:16"     # the README's serving buckets: (seconds, batch size)
+SERVE_CLIP_SECONDS = (1.0, 8.0)  # request clips spread over both buckets
+SERVE_REQUESTS, SERVE_CLIENTS = 256, 32
+FLOAT_REQUESTS = 32              # the same requests as JSON float lists
+CASCADE_REQUESTS = 64
+STUDENT_LAYERS = 2               # the cascade student: 2-layer encoders, full width
+PREDICT_REPEATS = 5
+LONG_CLIP_SECONDS = 12.0
+STREAM_CHUNK_SECONDS = 0.5
+WIRE_TOL = 1e-5      # int16 wire vs f32 wire on PCM: the same values reach the same ops
 SOURCE = "multilingual_multimodal_speech_emotion_recognition_tpu_torch/csrc/{}.cu"
 REPLACES = "multilingual_multimodal_speech_emotion_recognition_tpu/ops/pallas_kernels.py:{}"
 
@@ -795,6 +829,482 @@ def train_phases(torch, wrappers, smi: str, cfg, small: dict, work: Path, manife
     return a1
 
 
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def local_opener():
+    """urllib without proxies: the server is on this machine's loopback."""
+    import urllib.request
+    return urllib.request.build_opener(urllib.request.ProxyHandler({}))
+
+
+def get_json(opener, url: str) -> dict:
+    with opener.open(url, timeout=30) as r:
+        return json.loads(r.read())
+
+
+def request_clips(n: int, seconds, seed: int):
+    """n clips of uniform length in `seconds`, int16 PCM (a tone pair under
+    a 3 Hz envelope and a little noise), with a text each."""
+    rng = np.random.default_rng(seed)
+    clips = []
+    for i in range(n):
+        L = int(SAMPLE_RATE * rng.uniform(*seconds))
+        t = np.arange(L) / SAMPLE_RATE
+        f0 = rng.uniform(150.0, 400.0)
+        x = (0.5 + 0.5 * np.sin(2 * np.pi * 3.0 * t)) * (
+            0.3 * np.sin(2 * np.pi * f0 * t) + 0.15 * np.sin(4 * np.pi * f0 * t))
+        x += 0.01 * rng.standard_normal(L)
+        clips.append((np.clip(np.rint(x * 32768.0), -32768, 32767).astype(np.int16),
+                      CLIP_TEXTS[i % len(CLIP_TEXTS)]))
+    return clips
+
+
+def post_all(url: str, bodies, clients: int):
+    """A closed loop: `clients` threads POST the bodies to /predict, each
+    its next one as soon as its last came back. Returns (wall seconds, the
+    latency of each request in ms, the responses, the failures)."""
+    import threading
+    import urllib.request
+    opener = local_opener()
+    latency, responses, failures = [None] * len(bodies), [None] * len(bodies), []
+    order = iter(range(len(bodies)))
+    lock = threading.Lock()
+
+    def client():
+        while True:
+            with lock:
+                i = next(order, None)
+            if i is None:
+                return
+            req = urllib.request.Request(url + "/predict", data=bodies[i],
+                                         headers={"Content-Type": "application/json"})
+            t0 = time.perf_counter()
+            try:
+                with opener.open(req, timeout=600) as r:
+                    responses[i] = json.loads(r.read())
+            except OSError as e:
+                failures.append(f"{type(e).__name__}: {e}")
+            latency[i] = 1e3 * (time.perf_counter() - t0)
+
+    threads = [threading.Thread(target=client) for _ in range(min(clients, len(bodies)))]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=900)
+    wall = time.perf_counter() - t0
+    if any(th.is_alive() for th in threads):
+        raise AssertionError("HTTP clients still running after 900 s")
+    return wall, latency, responses, failures
+
+
+def quantiles(ms) -> dict:
+    a = np.asarray(ms, np.float64)
+    return {"p50": float(np.percentile(a, 50)), "p95": float(np.percentile(a, 95)),
+            "p99": float(np.percentile(a, 99)), "max": float(a.max())}
+
+
+def artifact_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def serve_phases(torch, wrappers, smi: str, cfg, work: Path, *, device: str = "cuda",
+                 buckets: str = SERVE_BUCKETS, clip_seconds=SERVE_CLIP_SECONDS,
+                 requests: int = SERVE_REQUESTS, clients: int = SERVE_CLIENTS,
+                 float_requests: int = FLOAT_REQUESTS,
+                 cascade_requests: int = CASCADE_REQUESTS,
+                 long_clip_seconds: float = LONG_CLIP_SECONDS,
+                 segment_seconds: float = 4.0) -> int:
+    """Phase 7 (see the module docstring) on phase 5d's checkpoint
+    (`work/checkpoint`, `cfg`'s model). Returns A1's launches on the paths
+    it drives. The keywords cut it to a tiny model's size for a CPU
+    rehearsal."""
+    import base64
+    import dataclasses
+    import threading
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch import (
+        export as ex, frontend, integration, interface, serving)
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.cli import (
+        export as export_cli, infer as infer_cli)
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.config import (
+        Config, to_json)
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.data import tokenizer
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.models import (
+        model as mdl)
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.train import (
+        checkpoint as ckpt)
+    cuda = torch.device(device).type == "cuda"
+    ck = work / "checkpoint"
+    tok = tokenizer.HashTokenizer(cfg.text.vocab_size)
+    (s0, b0), (s1, b1) = [(float(a), int(b)) for a, b in
+                          (pair.split(":") for pair in buckets.split(","))]
+    a1 = 0
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+
+    # 7a. export through the CLI: the bucketed f32 artifacts, one int16-wire
+    # artifact at the first bucket's shape, the cascade's student
+    student_cfg = dataclasses.replace(
+        cfg, audio=dataclasses.replace(cfg.audio, num_hidden_layers=STUDENT_LAYERS),
+        text=dataclasses.replace(cfg.text, num_hidden_layers=STUDENT_LAYERS))
+    student = mdl.init_model(student_cfg, torch.Generator(device=device).manual_seed(1), device)
+    ckpt.save_checkpoint(work / "student", params=student,
+                         config_json=to_json(Config(model=student_cfg)))
+    del student
+    common = ["--text_tokens", str(TEXT_TOKENS), "--device", device]
+    exports = {}
+    for name, args in (
+            ("buckets", ["--checkpoint", str(ck), "--buckets", buckets]),
+            ("int16", ["--checkpoint", str(ck), "--batch_size", str(b0),
+                       "--audio_seconds", str(s0), "--wire", "int16"]),
+            ("student", ["--checkpoint", str(work / "student"), "--buckets", buckets])):
+        out = work / f"serve_{name}"
+        t0 = time.perf_counter()
+        export_cli.main(args + ["--out_dir", str(out)] + common)
+        exports[name] = {"seconds": time.perf_counter() - t0, "bytes": artifact_bytes(out),
+                         "program_bytes": sum(f.stat().st_size
+                                              for f in out.rglob("program.pt2"))}
+    emit({"phase": "path", "path": "serve: export CLI", "card": smi, "buckets": buckets,
+          "text_tokens": TEXT_TOKENS, "student_layers": STUDENT_LAYERS, "exports": exports})
+    art, art_i16, art_student = (work / f"serve_{n}" for n in ("buckets", "int16", "student"))
+    first = f"b{s0:g}s_bs{b0}"
+
+    # 7b. the exported program against the eager forward, both DSP branches
+    params, _ = ckpt.restore_checkpoint(ck, device=device)
+    served = ex.ServingModel(art / first, device)
+    served_i16 = ex.ServingModel(art_i16, device)
+    T0 = int(s0 * SAMPLE_RATE)
+    agree = {}
+    for kind, make in (("worst_case", worst_case_dsp_audio), ("speech_like", speech_like)):
+        pcm = np.clip(np.rint(make(b0, T0, seed=7) * 32768.0), -32768, 32767).astype(np.int16)
+        lens = np.full(b0, T0, np.int32)
+        lens[1::4] = T0 * 3 // 4           # some rows padded
+        mask = (np.arange(T0)[None, :] < lens[:, None]).astype(np.float32)
+        pcm[mask == 0] = 0
+        ids = example_batch(b0, T0, TEXT_TOKENS, cfg.text.vocab_size, seed=3)
+        batch = {"audio": pcm.astype(np.float32) / 32768.0, "audio_mask": mask,
+                 "text_ids": ids["text_ids"], "text_mask": ids["text_mask"],
+                 "lid_entropy": np.ones(b0, np.float32), "lid_conf": np.zeros(b0, np.float32)}
+        dev = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+        stats = frontend.frontend_process(dev["audio"], dev["audio_mask"],
+                                          lid_entropy=dev["lid_entropy"],
+                                          lid_confidence=dev["lid_conf"])[3]
+        fired = dsp_flags(stats)
+        heavy = ("hum_filtered", "hpf_applied", "denoise_applied")
+        if (kind == "worst_case") != all(fired[f] > 0 for f in heavy) or (
+                kind == "speech_like" and any(fired[f] for f in heavy)):
+            raise AssertionError(f"serve {kind}: the gates took {fired}")
+        reset_counts(wrappers)
+        got = served.predict(batch)
+        count = counts(wrappers)["residual_stack"]
+        if count != 1:
+            raise AssertionError(f"serve {kind}: one predict launched A1 {count} times")
+        a1 += count
+        with torch.inference_mode():
+            o = mdl.model_forward(params, cfg, dev, use_openmax=True)
+        want = {"logits": o.logits, "uncertainty": o.uncertainty, "features": o.features}
+        diff = {k: float(np.abs(got[k] - want[k].float().cpu().numpy()).max()) for k in want}
+        for k, v in got.items():
+            if not np.isfinite(v).all():
+                raise AssertionError(f"serve {kind}: {k} is not finite")
+        if max(diff.values()) > AGREE_TOL[cfg.compute_dtype]:
+            raise AssertionError(f"serve {kind}: exported vs eager {diff}")
+        reset_counts(wrappers)
+        wire = served_i16.predict({**{k: batch[k] for k in batch if k not in
+                                      ("audio", "audio_mask")}, "audio": pcm, "audio_len": lens})
+        a1 += counts(wrappers)["residual_stack"]
+        wire_diff = {k: float(np.abs(wire[k] - got[k]).max()) for k in got}
+        if not all(np.allclose(wire[k], got[k], rtol=WIRE_TOL, atol=WIRE_TOL) for k in got):
+            raise AssertionError(f"serve {kind}: int16 wire vs f32 wire {wire_diff}")
+        times, eager_times = [], []
+        reset_counts(wrappers)
+        for _ in range(PREDICT_REPEATS):
+            t0 = time.perf_counter()
+            served.predict(batch)
+            times.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                mdl.model_forward(params, cfg, dev, use_openmax=True).logits.cpu()
+            eager_times.append(time.perf_counter() - t0)
+        count = counts(wrappers)["residual_stack"]
+        if count != 2 * PREDICT_REPEATS:
+            raise AssertionError(f"serve {kind}: {count} launches in {PREDICT_REPEATS} "
+                                 f"predicts and forwards")
+        a1 += count
+        agree[kind] = {"max_abs_diff": diff, "int16_vs_f32_wire": wire_diff,
+                       "branches": fired, "predict_ms": 1e3 * float(np.median(times)),
+                       "predict_ms_all": [1e3 * x for x in times],
+                       "eager_forward_ms": 1e3 * float(np.median(eager_times))}
+        del dev, o, want
+    served_second = ex.ServingModel(art / f"b{s1:g}s_bs{b1}", device)
+    T1 = int(s1 * SAMPLE_RATE)
+    batch1 = example_batch(b1, T1, TEXT_TOKENS, cfg.text.vocab_size, seed=4)
+    batch1 = {"audio": speech_like(b1, T1, seed=4), "audio_mask": np.ones((b1, T1), np.float32),
+              "text_ids": batch1["text_ids"], "text_mask": batch1["text_mask"],
+              "lid_entropy": np.ones(b1, np.float32), "lid_conf": np.zeros(b1, np.float32)}
+    times = []
+    reset_counts(wrappers)
+    for _ in range(PREDICT_REPEATS + 1):
+        t0 = time.perf_counter()
+        served_second.predict(batch1)
+        times.append(time.perf_counter() - t0)
+    a1 += counts(wrappers)["residual_stack"]
+    emit({"phase": "path", "path": "serve: exported program vs eager model_forward",
+          "card": smi, "B": b0, "seconds": s0, "tol": AGREE_TOL[cfg.compute_dtype],
+          "wire_tol": WIRE_TOL, "agree": agree,
+          "second_bucket": {"B": b1, "seconds": s1, "first_ms": 1e3 * times[0],
+                            "predict_ms": 1e3 * float(np.median(times[1:]))}})
+    del served, served_i16, served_second
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # 7c. HTTP: serving.serve in a thread on a free port, the bucketed
+    # artifacts; a lone request, a closed loop of base64 int16 requests from
+    # `clients` threads, then float-list requests; /healthz and /stats
+    captured = []
+    make_http_server = serving.make_http_server
+
+    def capture(*args, **kwargs):
+        captured.append(make_http_server(*args, **kwargs))
+        return captured[-1]
+
+    serving.make_http_server = capture
+    # each bucket worker's predict, timed: how much of a loop the programs
+    # take, and how a predict under load compares with one alone (7b)
+    predict_s = []
+    predict = ex.ServingModel.predict
+
+    def timed_predict(self, batch):
+        t0 = time.perf_counter()
+        out = predict(self, batch)
+        predict_s.append(time.perf_counter() - t0)
+        return out
+
+    ex.ServingModel.predict = timed_predict
+    port = free_port()
+    url = f"http://127.0.0.1:{port}"
+    t_start = time.perf_counter()
+    server = threading.Thread(target=serving.serve, args=(str(art),), daemon=True,
+                              kwargs=dict(host="127.0.0.1", port=port, tokenizer=tok,
+                                          device=device))
+    server.start()
+    opener = local_opener()
+    try:
+        while True:
+            try:
+                health = get_json(opener, url + "/healthz")
+                break
+            except OSError:
+                if not server.is_alive() or time.perf_counter() - t_start > 600:
+                    raise AssertionError("serve: the server did not come up") from None
+                time.sleep(0.5)
+        startup_s = time.perf_counter() - t_start
+        clips = request_clips(requests, clip_seconds, seed=5)
+        b64 = [json.dumps({"audio_b64": base64.b64encode(pcm.astype("<i2").tobytes()).decode(),
+                           "sample_rate": SAMPLE_RATE, "text": text}).encode()
+               for pcm, text in clips]
+        floats = [json.dumps({"audio": (pcm.astype(np.float32) / 32768.0).tolist(),
+                              "sample_rate": SAMPLE_RATE, "text": text}).encode()
+                  for pcm, text in clips[:float_requests]]
+        reset_counts(wrappers)
+        _, lone_ms, _, failed = post_all(url, b64[:1], 1)
+        count = counts(wrappers)["residual_stack"]
+        if failed or count != 1:
+            raise AssertionError(f"serve: the lone request: {failed}, {count} launches")
+        a1 += count
+        loops = {}
+        for name, bodies in (("audio_b64", b64), ("float_lists", floats)):
+            before = get_json(opener, url + "/stats")
+            reset_counts(wrappers)
+            predict_s.clear()
+            wall, ms, responses, failed = post_all(url, bodies, clients)
+            count = counts(wrappers)["residual_stack"]
+            after = get_json(opener, url + "/stats")
+            batches = after["batches"] - before["batches"]
+            if failed or after["batch_errors"] or any(r is None or "emotion" not in r
+                                                       for r in responses):
+                raise AssertionError(f"serve {name}: {len(failed)} failed, "
+                                     f"{after['batch_errors']} batch errors: {failed[:3]}")
+            if count != batches:
+                raise AssertionError(f"serve {name}: A1 launched {count} times in "
+                                     f"{batches} batches")
+            a1 += count
+            by_bucket = {}
+            for r in responses:
+                by_bucket[r["bucket_seconds"]] = by_bucket.get(r["bucket_seconds"], 0) + 1
+            loops[name] = {"requests": len(bodies), "clients": min(clients, len(bodies)),
+                           "wall_s": wall, "requests_per_s": len(bodies) / wall,
+                           "latency_ms": quantiles(ms), "batches": batches,
+                           # the server's fills are a running mean over its batches
+                           "mean_batch_fill": (after["mean_batch_fill"] * after["batches"]
+                                               - before["mean_batch_fill"] * before["batches"])
+                           / batches,
+                           "requests_by_bucket": by_bucket,
+                           "predict_ms": quantiles([1e3 * x for x in predict_s]),
+                           "predict_share_of_wall": sum(predict_s) / wall,
+                           "body_mb": sum(map(len, bodies)) / 2 ** 20, "launches": count,
+                           "server_stats": after}
+        health = get_json(opener, url + "/healthz")
+        if health["status"] != "ok" or [b["batch_size"] for b in health["buckets"]] != [b0, b1] \
+                or not all(b["loaded"] for b in health["buckets"]):
+            raise AssertionError(f"serve: /healthz {health}")
+    finally:
+        serving.make_http_server = make_http_server
+        ex.ServingModel.predict = predict
+        if captured:
+            captured[0].shutdown()
+        server.join(timeout=120)
+    if server.is_alive():
+        raise AssertionError("serve: the server did not drain")
+    emit({"phase": "path", "path": "serve: HTTP (serving.serve in a thread)", "card": smi,
+          "buckets": buckets, "clip_seconds": list(clip_seconds), "startup_s": startup_s,
+          "lone_request_ms": lone_ms[0], "loops": loops, "healthz": health})
+
+    # 7d. the cascade: the 2-layer student answers, unsure rows escalate to
+    # the flagship teacher; the threshold is the median of the student's
+    # confidences on the same requests
+    waves = [(pcm.astype(np.float32) / 32768.0, text) for pcm, text in clips[:cascade_requests]]
+
+    def submit_all(core):
+        out = [None] * len(waves)
+
+        def run(i):
+            out[i] = core.submit(*waves[i], timeout=600)
+
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(len(waves))]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=900)
+        return time.perf_counter() - t0, out
+
+    student_core = serving.BatchingServer(serving.ArtifactRouter(art_student, preload=True,
+                                                                 device=device), tokenizer=tok)
+    teacher_core = serving.BatchingServer(serving.ArtifactRouter(art, preload=True,
+                                                                 device=device), tokenizer=tok)
+    try:
+        reset_counts(wrappers)
+        student_s, first = submit_all(student_core)
+        threshold = float(np.median([r["confidence"] for r in first]))
+        cascade = serving.CascadeServer(student_core, teacher_core,
+                                        confidence_threshold=threshold)
+        cascade_s, answers = submit_all(cascade)
+        summary = cascade.stats_summary()
+        count = counts(wrappers)["residual_stack"]
+    finally:
+        student_core.close()
+        teacher_core.close()
+    batches = summary["student"]["batches"] + summary["teacher"]["batches"]
+    if count != batches or summary["student"]["batch_errors"] or summary["teacher"]["batch_errors"]:
+        raise AssertionError(f"serve cascade: {count} launches in {batches} batches: {summary}")
+    a1 += count
+    emit({"phase": "path", "path": "serve: cascade (2-layer student, flagship teacher)",
+          "card": smi, "requests": len(waves), "confidence_threshold": threshold,
+          "escalation_rate": summary["escalation_rate"],
+          "student_only_requests_per_s": len(waves) / student_s,
+          "cascade_requests_per_s": len(waves) / cascade_s,
+          "escalated": sum(r["escalated"] for r in answers), "launches": count,
+          "stats": summary})
+
+    # 7e. cli.infer on one of phase 5d's clips, plain and with feature-
+    # averaging TTA; then the interface's ms a call after a warm call
+    wav = sorted((work / "datasets" / "clips").glob("*.wav"))[-1]
+    infer = {}
+    iface = interface.EmotionRecognitionInterface(str(ck), device=device, tokenizer=tok)
+    for tta in (False, True):
+        out = work / f"infer_{'tta' if tta else 'plain'}.json"
+        reset_counts(wrappers)
+        t0 = time.perf_counter()
+        res = infer_cli.main(["--checkpoint", str(ck), "--audio", str(wav), "--text",
+                              CLIP_TEXTS[1], "--export", str(out), "--device", device]
+                             + (["--use_tta"] if tta else []))
+        cli_s = time.perf_counter() - t0
+        saved = json.loads(out.read_text())
+        if saved["emotion_labels"] != res["emotion_labels"] or not np.isfinite(
+                res["logits"]).all():
+            raise AssertionError(f"infer tta={tta}: {saved['emotion_labels']}")
+        iface.predict_emotion(str(wav), CLIP_TEXTS[1], use_tta=tta)   # warm
+        times = []
+        for _ in range(PREDICT_REPEATS):
+            t0 = time.perf_counter()
+            iface.predict_emotion(str(wav), CLIP_TEXTS[1], use_tta=tta)
+            times.append(time.perf_counter() - t0)
+        count = counts(wrappers)["residual_stack"]
+        if count != PREDICT_REPEATS + 2:
+            raise AssertionError(f"infer tta={tta}: {count} launches in the CLI's call and "
+                                 f"{PREDICT_REPEATS + 1} interface calls")
+        a1 += count
+        infer["tta" if tta else "plain"] = {
+            "cli_s": cli_s, "ms": 1e3 * float(np.median(times)),
+            "ms_all": [1e3 * x for x in times], "emotion": res["emotion_labels"][0],
+            "confidence": float(res["confidence"][0]), "export_bytes": out.stat().st_size}
+    emit({"phase": "path", "path": "infer CLI and interface", "card": smi,
+          "clip_seconds": iface.preprocess_audio(str(wav)).size / SAMPLE_RATE,
+          "infer": infer})
+    del iface
+
+    # 7f. the staged pipeline on a long clip, the stream in chunks, the
+    # integration check
+    icfg = Config(model=cfg)
+    long_clip = speech_like(1, int(long_clip_seconds * SAMPLE_RATE), seed=9)[0]
+    pipe = integration.DataFlowPipeline(params, icfg, tokenizer=tok)
+    reset_counts(wrappers)
+    pipe.process_audio_segment(long_clip[:int(segment_seconds * SAMPLE_RATE)],
+                               CLIP_TEXTS[0])   # warm
+    t0 = time.perf_counter()
+    outs = pipe.process_long_audio(long_clip, CLIP_TEXTS[0], segment_seconds=segment_seconds)
+    pipe_s = time.perf_counter() - t0
+    count = counts(wrappers)["residual_stack"]
+    if count != len(outs) + 1 or not all(np.isfinite(o["logits"]).all() for o in outs):
+        raise AssertionError(f"pipeline: {count} launches in {len(outs)} + 1 segments")
+    a1 += count
+    stages = {}
+    for o in outs:
+        for m in o["stage_metrics"]:
+            stages.setdefault(m.stage_name, []).append(1e3 * m.processing_time)
+    rec = integration.StreamingRecognizer(params, icfg, tokenizer=tok,
+                                          segment_seconds=segment_seconds)
+    chunk = int(STREAM_CHUNK_SECONDS * SAMPLE_RATE)
+    reset_counts(wrappers)
+    t0 = time.perf_counter()
+    results, push_ms = [], []
+    for start in range(0, long_clip.size, chunk):
+        t1 = time.perf_counter()
+        done = rec.push_audio(long_clip[start:start + chunk], CLIP_TEXTS[0])
+        if done:
+            push_ms.append(1e3 * (time.perf_counter() - t1))
+        results += done
+    tail = rec.flush(CLIP_TEXTS[0])
+    stream_s = time.perf_counter() - t0
+    results += [tail] if tail is not None else []
+    count = counts(wrappers)["residual_stack"]
+    if count != len(results) or not all(np.isfinite(r["smoothed_logits"]).all()
+                                        for r in results):
+        raise AssertionError(f"stream: {count} launches in {len(results)} segments")
+    a1 += count
+    checks = integration.verify_integration(params, icfg)
+    if not checks["all_passed"]:
+        raise AssertionError(f"verify_integration: {checks}")
+    emit({"phase": "path", "path": "integration: pipeline, stream, verify", "card": smi,
+          "clip_seconds": long_clip_seconds, "segments": len(outs), "pipeline_s": pipe_s,
+          "stage_ms_mean": {k: float(np.mean(v)) for k, v in stages.items()},
+          "stream_segments": len(results), "stream_s": stream_s,
+          "stream_segment_ms": push_ms,
+          "speaker_changed": [r["speaker_changed"] for r in results],
+          "verify_integration": checks,
+          "max_memory_allocated": torch.cuda.max_memory_allocated() if cuda else None})
+    del params, pipe, rec
+    if cuda:
+        torch.cuda.empty_cache()
+    return a1
+
+
 def reset_counts(wrappers) -> None:
     for w in wrappers.values():
         w.launches = 0
@@ -1353,6 +1863,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         launches["residual_stack"] += train_phases(torch, wrappers, smi, cfg, small, work,
                                                    manifest)
+        launches["residual_stack"] += serve_phases(torch, wrappers, smi, cfg, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()

@@ -7,9 +7,11 @@ exact steady-state |H(f)|^2 responses applied in the rfft domain.
 
 The heavy stages (the notch/HPF fft round trip, the spectral-gate
 denoiser, the dereverb Welch pass) run only when some utterance of the
-batch needs them, as the JAX module's `lax.cond` gates do; each such gate
-is a Python `if` on one predicate read back from the device, the only host
-reads of the chain. `condition_audio` takes three: notch/HPF, denoise (which
+batch needs them, as the JAX module's `lax.cond` gates do. Each such gate
+goes through `gated`: run eagerly, a Python `if` on one predicate read back
+from the device, the only host reads of the chain; traced by torch.export,
+a `torch.cond`, so that the exported program keeps both branches and picks
+on the device. `condition_audio` takes three: notch/HPF, denoise (which
 also decides the post-denoise SNR), dereverb. The values are the same
 whichever way a gate goes, since the rows that do not need a stage are
 selected past it.
@@ -17,13 +19,13 @@ selected past it.
 
 from __future__ import annotations
 
-import functools
 import math
 from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
+from ..utils.runtime import export_safe_cache
 from . import spectral as sp
 
 Tensor = torch.Tensor
@@ -63,6 +65,25 @@ class ConditioningStats(NamedTuple):
     features: Tensor           # [B, 12] raw (pre-projection) feature vector
 
 
+def gated(pred: Tensor, run, skip, operands: tuple):
+    """run(*operands) if the 0-d bool `pred` holds, else skip(*operands).
+    Eagerly a Python `if` on `pred` read back from the device (one host
+    read); while torch.export traces, `torch.cond` (JAX's `lax.cond`),
+    whose branches take every tensor they read as an operand and may not
+    return one (torch 2.11 refuses the aliasing): a branch's output that is
+    an operand is cloned there."""
+    if torch.compiler.is_exporting():
+        def fresh(branch):
+            def call(*ops):
+                out = branch(*ops)
+                outs = out if isinstance(out, tuple) else (out,)
+                outs = tuple(o.clone() if any(o is a for a in ops) else o for o in outs)
+                return outs if isinstance(out, tuple) else outs[0]
+            return call
+        return torch.cond(pred, fresh(run), fresh(skip), operands)
+    return run(*operands) if bool(pred) else skip(*operands)
+
+
 def _zero_phase_apply(wave: Tensor, mag_sq_response: Tensor) -> Tensor:
     """Apply |H(f)|^2 in the rfft domain == steady-state filtfilt."""
     spec = torch.fft.rfft(wave, dim=-1)
@@ -86,7 +107,7 @@ def _notch_mag_sq_freqs(freqs: Tensor, sample_rate: int, f0: float, Q: float) ->
     return (H.abs() ** 2).float()
 
 
-@functools.lru_cache(maxsize=16)
+@export_safe_cache(maxsize=16)
 def _notch_mag_sq(n: int, sample_rate: int, f0: float, Q: float,
                   device: torch.device) -> Tensor:
     """The notch's |H|^2 on the length-n rfft grid, cached per grid."""
@@ -203,7 +224,7 @@ def detect_noise_type(wave: Tensor, mask: Tensor, *, sample_rate: int) -> Tensor
     return classify_noise_psd(freqs, psd)
 
 
-@functools.lru_cache(maxsize=16)
+@export_safe_cache(maxsize=16)
 def _overlap_add_norm(out_len: int, n_fft: int, hop: int, device: torch.device) -> Tensor:
     """The window-square normaliser of an overlap-add of hann frames into
     out_len samples, max(sum of win^2, 1e-8): [out_len], cached per shape."""
@@ -276,13 +297,15 @@ def dereverb(wave: Tensor, mask: Tensor, t60: Tensor, *,
     reference scales the whole clip by the mean per-bin gain); the Welch
     pass runs only when some row is reverberant. Returns (out, gain_db)."""
     apply = t60 > T60_THRESHOLD
-    out = wave
-    if bool(apply.any()):
+
+    def run(wave, mask, apply):
         _, psd = sp.welch_psd(wave, mask, sample_rate=sample_rate, nperseg=1024)
         reverb_est = psd.mean(-1, keepdim=True) * 0.1
         psd_clean = torch.maximum(psd - reverb_est, psd * 0.1)
         gain = torch.sqrt(psd_clean / (psd + 1e-10)).clamp(0.1, 1.0)
-        out = torch.where(apply[:, None], wave * gain.mean(-1)[:, None], wave)
+        return torch.where(apply[:, None], wave * gain.mean(-1)[:, None], wave)
+
+    out = gated(apply.any(), run, lambda wave, mask, apply: wave, (wave, mask, apply))
     orig_e = sp.masked_mean(wave ** 2, mask)
     new_e = sp.masked_mean(out ** 2, mask)
     gain_db = torch.where(apply & (new_e > 0),
@@ -340,12 +363,14 @@ def condition_audio(wave: Tensor, mask: Tensor, *,
     notch_w = _notch_response(hum_flags, n_w, sample_rate)
     should_hpf, cutoff = _hpf_decision_from_psd(freqs_w, psd0 * notch_w)
 
-    x = wave
-    if bool(hum_filtered.any() | should_hpf.any()):                  # host read 1
+    def notch_hpf(wave, mask, hum_flags, should_hpf, cutoff):
         resp = _notch_response(hum_flags, T, sample_rate)
         hp = _butter_hp_mag_sq(T, sample_rate, cutoff)
         resp = resp * torch.where(should_hpf[:, None], hp, 1.0)
-        x = _zero_phase_apply(wave, resp) * mask
+        return _zero_phase_apply(wave, resp) * mask
+
+    x = gated(hum_filtered.any() | should_hpf.any(), notch_hpf,          # host read 1
+              lambda wave, *_: wave, (wave, mask, hum_flags, should_hpf, cutoff))
     x = x * mask
     cutoff_feat = torch.where(should_hpf, cutoff, 0.0)
 
@@ -356,10 +381,15 @@ def condition_audio(wave: Tensor, mask: Tensor, *,
 
     snr_before = estimate_snr_energy(x, mask)
     need_denoise = snr_before < SNR_DENOISE_THRESHOLD
-    snr_after = snr_before               # x unchanged where no row is denoised
-    if bool(need_denoise.any()):                                     # host read 2
+
+    def denoise(x, mask, need_denoise, snr_before):
         x = torch.where(need_denoise[:, None], spectral_gate_denoise(x, mask), x)
-        snr_after = estimate_snr_energy(x, mask)
+        return x, estimate_snr_energy(x, mask)
+
+    # x unchanged, and so its SNR, where no row is denoised
+    x, snr_after = gated(need_denoise.any(), denoise,                   # host read 2
+                         lambda x, mask, need_denoise, snr_before: (x, snr_before),
+                         (x, mask, need_denoise, snr_before))
     orig_e = sp.masked_mean(wave ** 2, mask)
     new_e = sp.masked_mean(x ** 2, mask)
     denoise_gain = torch.where(

@@ -16,23 +16,24 @@ to float32 as JAX's x32 mode rounds them, and cached per shape and device.
 
 from __future__ import annotations
 
-import functools
 import math
 
 import torch
 import torch.nn.functional as F
 
+from ..utils.runtime import export_safe_cache
+
 Tensor = torch.Tensor
 
 
-@functools.lru_cache(maxsize=32)
+@export_safe_cache(maxsize=32)
 def hann_window(n: int, device: torch.device) -> Tensor:
     """Periodic Hann window (scipy.signal.get_window('hann', n)), f32."""
     k = torch.arange(n, dtype=torch.float64, device=device)
     return (0.5 - 0.5 * torch.cos(2.0 * math.pi * k / n)).float()
 
 
-@functools.lru_cache(maxsize=32)
+@export_safe_cache(maxsize=32)
 def rfftfreq(n: int, sample_rate: int, device: torch.device,
              dtype: torch.dtype = torch.float32) -> Tensor:
     """np.fft.rfftfreq(n, 1 / sample_rate), computed in f64 and cast."""
@@ -41,7 +42,7 @@ def rfftfreq(n: int, sample_rate: int, device: torch.device,
     return (k * step).to(dtype)
 
 
-@functools.lru_cache(maxsize=16)
+@export_safe_cache(maxsize=16)
 def _reflect_index(T: int, pad: int, device: torch.device) -> Tensor:
     """Indices of a length-T signal padded by `pad` on both sides with
     numpy's 'reflect' mode, for any pad (the reflection repeats with
@@ -93,7 +94,7 @@ def full_frame_mask(mask: Tensor, frame_length: int, hop: int,
     ends = (torch.arange(num_frames, dtype=mask.dtype, device=mask.device)[None, :] * hop
             + frame_length)
     out = (ends <= valid_len).to(mask.dtype)
-    out[..., 0] = 1.0
+    out[..., 0].fill_(1.0)  # a setitem of a Python float would trace a tensor constant
     return out
 
 
@@ -187,7 +188,7 @@ def median_smooth_bool(x: Tensor, size: int = 5) -> Tensor:
     return xp.unfold(-1, size, 1).sum(-1) > (size / 2.0)
 
 
-@functools.lru_cache(maxsize=16)
+@export_safe_cache(maxsize=16)
 def _welch_scale(nperseg: int, sample_rate: int, device: torch.device) -> Tensor:
     """Density scaling 1 / (fs * sum(win^2)), a 0-d f32 tensor on the
     device (a Python float would cost a device read)."""

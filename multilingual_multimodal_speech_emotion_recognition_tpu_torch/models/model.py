@@ -159,8 +159,10 @@ def _feature_fuse(p: dict, seq: Tensor, feats: Tensor,
 
 def _frozen(tree) -> contextlib.AbstractContextManager:
     """torch.no_grad() where no leaf of `tree` wants a gradient, so that a
-    frozen encoder keeps no activations; else nothing."""
-    if any(t.requires_grad for _, t in leaves_with_paths(tree)):
+    frozen encoder keeps no activations; else, or where no gradient is
+    recorded anyway (an eval forward; torch.export would trace a grad-mode
+    switch), nothing."""
+    if not torch.is_grad_enabled() or any(t.requires_grad for _, t in leaves_with_paths(tree)):
         return contextlib.nullcontext()
     return torch.no_grad()
 

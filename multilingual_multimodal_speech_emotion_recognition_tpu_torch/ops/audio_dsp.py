@@ -24,17 +24,18 @@ these to XLA; here they are plain PyTorch, no kernel of their own.
 
 from __future__ import annotations
 
-import functools
 import math
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..utils.runtime import export_safe_cache
+
 Tensor = torch.Tensor
 
 
-@functools.lru_cache(maxsize=64)
+@export_safe_cache(maxsize=64)
 def _resample_kernel(orig_freq: int, new_freq: int,
                      lowpass_filter_width: int = 6,
                      rolloff: float = 0.99) -> Tuple[np.ndarray, int]:
@@ -56,7 +57,7 @@ def _resample_kernel(orig_freq: int, new_freq: int,
     return kernel.astype(np.float32), width
 
 
-@functools.lru_cache(maxsize=64)
+@export_safe_cache(maxsize=64)
 def _kernel_on(orig: int, new: int, device: torch.device) -> Tensor:
     """The [K, new] kernel, transposed for the matmul, once per device."""
     kernel, _ = _resample_kernel(orig, new)

@@ -20,8 +20,12 @@ the critical path. What is left on it is latency: the barrier, the L2
 round trip of the exchanged rows, the LNs and each product's reduction.
 See the source for the phases and the ring.
 
-`residual_stack` takes the plain version for a tensor on the CPU only; for a
-CUDA tensor it launches the kernel or raises. The kernel has no backward
+The stack is the registered op `ser_torch::residual_stack` (its CPU
+implementation the plain version, its CUDA implementation the launch), so
+a program traced by torch.export holds one node for it and launches the
+kernel each time it runs. `residual_stack` takes the plain version for a
+tensor on the CPU only; for a CUDA tensor it launches the kernel or
+raises. The kernel has no backward
 and writes its output through a raw pointer, so that output carries no
 autograd history: on a CUDA tensor the wrapper raises where autograd is
 recording and x or a layer parameter wants a gradient, instead of cutting
@@ -42,9 +46,6 @@ from ..models import layers
 from . import _build
 
 Tensor = torch.Tensor
-
-_VECTORS = (("ln_pre", "scale"), ("ln_pre", "bias"),
-            ("block_ln", "scale"), ("block_ln", "bias"))
 
 # What csrc/residual_stack.cu takes; plan() keeps to it.
 WARPS = 8                        # 256 threads a block
@@ -165,31 +166,48 @@ def build() -> None:
     _build.load("residual_stack", _SIGNATURES)
 
 
-def residual_stack(stacked: dict, x: Tensor) -> Tensor:
-    """Eval-path residual stack. stacked: the classifier's [L, ...] layer
-    parameters; x: [B, D] f32. A CPU tensor takes the plain version; a CUDA
-    tensor launches the kernel, or raises on what the kernel does not take,
-    a gradient included."""
-    if x.device.type == "cpu":
-        return residual_stack_plain(stacked, x)
-    if x.device.type != "cuda":
-        raise ValueError(f"residual_stack: no kernel for device {x.device}")
-    if torch.is_grad_enabled() and (x.requires_grad or any(
-            t.requires_grad for sub in stacked.values() for t in sub.values())):
-        raise RuntimeError(
-            "residual_stack: the CUDA kernel has no backward; run the eval forward "
-            "under torch.no_grad() or torch.inference_mode(), and train through "
-            "the classifier's plain stack (deterministic=False)")
-    w1 = stacked["block_lin1"]["kernel"]
-    w2 = stacked["block_lin2"]["kernel"]
+# The op's tensors after x, in the order csrc/residual_stack.cu takes them.
+_LAYER_TENSORS = (("ln_pre", "scale"), ("ln_pre", "bias"), ("block_ln", "scale"),
+                  ("block_ln", "bias"), ("block_lin1", "kernel"), ("block_lin1", "bias"),
+                  ("block_lin2", "kernel"), ("block_lin2", "bias"))
+
+
+def _stacked(layer_tensors) -> dict:
+    stacked = {}
+    for (sub, name), t in zip(_LAYER_TENSORS, layer_tensors):
+        stacked.setdefault(sub, {})[name] = t
+    return stacked
+
+
+@torch.library.custom_op("ser_torch::residual_stack", mutates_args=(), device_types="cpu")
+def residual_stack_op(x: Tensor, ln_pre_scale: Tensor, ln_pre_bias: Tensor,
+                      block_ln_scale: Tensor, block_ln_bias: Tensor, w1: Tensor,
+                      b1: Tensor, w2: Tensor, b2: Tensor) -> Tensor:
+    """The stack as a registered op, so that the dispatcher, and with it
+    torch.export, sees one node where the kernel launches. On the CPU it
+    is the plain version; on CUDA the kernel (`_residual_stack_cuda`)."""
+    out = residual_stack_plain(_stacked((ln_pre_scale, ln_pre_bias, block_ln_scale,
+                                         block_ln_bias, w1, b1, w2, b2)), x)
+    return out.clone() if out is x else out
+
+
+@residual_stack_op.register_fake
+def _residual_stack_fake(x, *layer_tensors):
+    return torch.empty_like(x)
+
+
+@residual_stack_op.register_kernel("cuda")
+def _residual_stack_cuda(x: Tensor, *layer_tensors: Tensor) -> Tensor:
+    """The launch: checks what the kernel takes, cuts the grid by `plan`
+    and counts the launch on the `residual_stack` wrapper."""
+    w1, w2 = layer_tensors[4], layer_tensors[6]
     L, D = w1.shape[:2]
     if x.dim() != 2 or x.shape[1] != D or x.shape[0] < 1:
         raise ValueError(f"residual_stack: x {tuple(x.shape)} is not [B, {D}]")
     if D % 4 != 0 or D > 2048:
         raise ValueError(f"residual_stack: the kernel takes D % 4 == 0 and "
                          f"D <= 2048, got D={D}")
-    args = [x, *(stacked[a][b] for a, b in _VECTORS), w1,
-            stacked["block_lin1"]["bias"], w2, stacked["block_lin2"]["bias"]]
+    args = [x, *layer_tensors]
     shapes = [(x.shape[0], D)] + [(L, D)] * 4 + [(L, D, D), (L, D), (L, D, D), (L, D)]
     for t, shape in zip(args, shapes):
         if (tuple(t.shape) != shape or t.dtype != torch.float32
@@ -211,6 +229,26 @@ def residual_stack(stacked: dict, x: Tensor) -> Tensor:
                   p.col_width, p.col_groups, p.row_blocks, p.depth)
     residual_stack.launches += 1
     return out
+
+
+def residual_stack(stacked: dict, x: Tensor) -> Tensor:
+    """Eval-path residual stack. stacked: the classifier's [L, ...] layer
+    parameters; x: [B, D] f32. It calls `ser_torch::residual_stack`: on a
+    CPU tensor the plain version, on a CUDA tensor the kernel, which raises
+    on what it does not take. Where autograd records and x or a layer
+    parameter wants a gradient, a CPU tensor takes the plain loop with its
+    history and a CUDA tensor raises: the kernel has no backward."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"residual_stack: no kernel for device {x.device}")
+    if torch.is_grad_enabled() and (x.requires_grad or any(
+            t.requires_grad for sub in stacked.values() for t in sub.values())):
+        if x.device.type == "cpu":
+            return residual_stack_plain(stacked, x)
+        raise RuntimeError(
+            "residual_stack: the CUDA kernel has no backward; run the eval forward "
+            "under torch.no_grad() or torch.inference_mode(), and train through "
+            "the classifier's plain stack (deterministic=False)")
+    return torch.ops.ser_torch.residual_stack(x, *(stacked[a][b] for a, b in _LAYER_TENSORS))
 
 
 residual_stack.launches = 0

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Iterator, Optional, Tuple, Union
 
 import numpy as np
@@ -65,3 +66,23 @@ def tree_to(tree, device: Union[str, torch.device]):
     if isinstance(tree, (list, tuple)):
         return [tree_to(v, device) for v in tree]
     return tree.to(device)
+
+
+def export_safe_cache(maxsize: int):
+    """functools.lru_cache for a factory of constant tensors, bypassed while
+    torch.export traces: there the factory's tensors must be ops of the
+    trace (a cached tensor would enter the program as a constant, which a
+    `torch.cond` branch may not hold), and a traced tensor must not stay in
+    the cache for the next eager call."""
+    def wrap(fn: Callable) -> Callable:
+        cached = functools.lru_cache(maxsize=maxsize)(fn)
+
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            if torch.compiler.is_exporting():
+                return fn(*args, **kwargs)
+            return cached(*args, **kwargs)
+
+        call.cache_clear = cached.cache_clear
+        return call
+    return wrap

@@ -663,3 +663,95 @@ def test_remat_on_the_card_gives_the_gradients_of_no_remat(cuda, remat):
     for p, g in grads["none"].items():
         torch.testing.assert_close(grads[remat][p], g, rtol=1e-5, atol=1e-6, msg=p)
     assert grads["none"]["audio_backbone/layers/q/kernel"].abs().sum() > 0
+
+
+@pytest.mark.cuda
+def test_registered_op_on_the_card_is_the_kernel(cuda):
+    """`ser_torch::residual_stack` on CUDA tensors launches the kernel (the
+    wrapper's count moves) and equals the plain version."""
+    stacked, x = _perturbed_stack(cuda, 35, 512, seed=7)
+    x = x[:20].contiguous()
+    before = rs.residual_stack.launches
+    got = torch.ops.ser_torch.residual_stack(x, *(stacked[a][b] for a, b in rs._LAYER_TENSORS))
+    torch.cuda.synchronize()
+    assert rs.residual_stack.launches == before + 1
+    torch.testing.assert_close(got, rs.residual_stack_plain(stacked, x), rtol=TOL, atol=TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", ["f32", "int16"])
+def test_exported_program_on_the_card_launches_a1_and_matches_eager(cuda, tmp_path, wire):
+    """A tiny model with the DSP on, exported on the card: each predict
+    launches the residual-stack kernel once, and its outputs equal the
+    eager forward's on the same rows (the same ops on the same card)."""
+    import dataclasses
+
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch import export as ex
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.models import (
+        model as tm)
+    cfg = dataclasses.replace(_tiny_eval_config().model, frontend_dsp=True)
+    params = tm.init_model(cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    art = ex.export_forward(params, cfg, tmp_path / "art", batch_size=4, audio_seconds=1.0,
+                            text_tokens=10, wire=wire, device=cuda)
+    served = ex.ServingModel(art, device=cuda)
+    wave, mask = _dsp_batch()
+    pcm = torch.clamp(torch.round(wave * 32768.0), -32768, 32767) * mask
+    wave = pcm / 32768.0
+    rng = np.random.default_rng(1)
+    text = {"text_ids": rng.integers(2, 100, (4, 10)).astype(np.int32),
+            "text_mask": np.ones((4, 10), np.float32),
+            "lid_entropy": np.ones(4, np.float32), "lid_conf": np.full(4, 0.5, np.float32)}
+    batch = dict(text, audio=wave.numpy(), audio_mask=mask.numpy())
+    if wire == "int16":
+        wire_batch = dict(text, audio=pcm.numpy().astype(np.int16),
+                          audio_len=mask.sum(-1).numpy().astype(np.int32))
+    else:
+        wire_batch = batch
+    before = rs.residual_stack.launches
+    got = served.predict(wire_batch)
+    assert rs.residual_stack.launches == before + 1
+    with torch.inference_mode():
+        want = tm.model_forward(params, cfg, batch, use_openmax=True)
+    for name, w in (("logits", want.logits), ("uncertainty", want.uncertainty),
+                    ("features", want.features)):
+        np.testing.assert_allclose(got[name], w.float().cpu().numpy(), rtol=TOL, atol=TOL,
+                                   err_msg=name)
+    with pytest.raises(ValueError, match="traced for"):
+        ex.ServingModel(art, device="cpu")
+
+
+@pytest.mark.cuda
+def test_pipeline_and_interface_on_the_card_launch_a1(cuda, tmp_path):
+    """The staged pipeline, the stream and the interface run the eval
+    forward on the card: one kernel launch a segment, a call or a TTA call."""
+    import dataclasses
+
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch import (
+        config as tcfg, integration, interface)
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.data import (
+        audio_io, tokenizer)
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.models import (
+        model as tm)
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.train import (
+        checkpoint as ck)
+    cfg = _tiny_eval_config()
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, frontend_dsp=True),
+                              data=dataclasses.replace(cfg.data, max_text_tokens=10))
+    params = tm.init_model(cfg.model, torch.Generator(device=cuda).manual_seed(0), cuda)
+    wave = _dsp_batch()[0][0].numpy()
+    tok = tokenizer.HashTokenizer(100)
+    before = rs.residual_stack.launches
+    pipe = integration.DataFlowPipeline(params, cfg, tokenizer=tok)
+    out = pipe.process_long_audio(np.tile(wave, 2), "hello", segment_seconds=1.0)
+    assert rs.residual_stack.launches == before + len(out) == before + 3  # 50 % overlap
+    stream = integration.StreamingRecognizer(params, cfg, segment_seconds=0.5, tokenizer=tok)
+    results = stream.push_audio(wave, "hello") + [stream.flush("hello")]
+    assert results[-1] is None and len(results) == 3
+    assert rs.residual_stack.launches == before + 5
+    ck.save_checkpoint(tmp_path / "ck", params=params, config_json=tcfg.to_json(cfg))
+    audio_io.write_wav(tmp_path / "a.wav", wave, 16000)
+    iface = interface.EmotionRecognitionInterface(str(tmp_path / "ck"), tokenizer=tok)
+    for tta in (False, True):
+        res = iface.predict_emotion(str(tmp_path / "a.wav"), "hello", use_tta=tta)
+        assert np.isfinite(res["logits"]).all()
+    assert rs.residual_stack.launches == before + 7

@@ -38,5 +38,7 @@ def test_port_imports_without_jax():
                    "data.native", "data.tokenizer", "data.bucketing", "data.pipeline",
                    "data.prefetch", "utils.metrics", "eval.evaluate", "train.checkpoint",
                    "cli.eval", "models.remat", "models.prototypes", "ops.losses",
-                   "train.optimizer", "train.train_step", "train.loop", "cli.train"):
+                   "train.optimizer", "train.train_step", "train.loop", "cli.train",
+                   "export", "serving", "interface", "integration", "research.temporal",
+                   "research.dual_gate_ood", "cli.export", "cli.serve", "cli.infer"):
         assert port + module in report["imported"]

@@ -90,3 +90,22 @@ def test_residual_stack_plain_matches_scan_at_flagship_width(B):
             jax.tree.map(j, jlayers), j(x))
     assert got.shape == (B, D)
     assert_close(got, want, STACK_TOL)
+
+
+def test_registered_op_on_the_cpu_is_the_plain_version():
+    """`ser_torch::residual_stack` on CPU tensors is the plain loop,
+    bitwise; its fake implementation gives the output's shape to a trace;
+    the wrapper goes through the op."""
+    import torch
+
+    g = torch.Generator().manual_seed(0)
+    stacked = tclf.init_classifier(tclf.layers.Init(g, "cpu"), 8, 4, 3, 32)["layers"]
+    x = torch.randn(5, 32, generator=g)
+    tensors = [stacked[a][b] for a, b in rs._LAYER_TENSORS]
+    want = rs.residual_stack_plain(stacked, x)
+    assert torch.equal(torch.ops.ser_torch.residual_stack(x, *tensors), want)
+    assert torch.equal(rs.residual_stack(stacked, x), want)
+    with torch._subclasses.fake_tensor.FakeTensorMode() as mode:
+        fake = torch.ops.ser_torch.residual_stack(mode.from_tensor(x),
+                                                  *map(mode.from_tensor, tensors))
+    assert fake.shape == x.shape and fake.dtype == x.dtype
