@@ -92,7 +92,29 @@ Phases, one JSON line each:
               - `DataFlowPipeline.process_long_audio` on a 12 s clip (ms a
                 stage), `StreamingRecognizer` over it in 0.5 s chunks and
                 `flush`, `verify_integration`; peak memory
-Then the `kernels` line and, last, {"ok": true, "device": {...}}.
+  8. large    the large audio backbones at full width (24 layers, hidden
+              1024, 16 heads, FFN 4096, the layer-norm conv stack) with
+              XLM-R-base and the 35-layer head, bf16, random weights from
+              seed 0; HuBERT-Large has wav2vec2-large's config and runs as it:
+              - wav2vec2-large and wavlm-large on the card against the CPU,
+                both encoders cut to 2 layers, f32 and bf16 (AGREE_TOL);
+              - kernel A4's layer-norm route at [32, 12799, 512] bf16, with
+                and without conv biases, against its plain version: ms, plain
+                ms, the cuDNN layers with LN and GELU, the bound;
+              - `model_forward` at B=4 and B=32, 4 s clips, 32 tokens, the DSP
+                on worst-case audio: ms, utt/s, peak memory, A1's launches
+                (wav2vec2-base too, at the same shapes);
+              - `feature_encoder(allow_fused=True)` at B=4 and B=32, the
+                layer-norm route of A4 on the path, against the unfused
+                layer-norm extractor;
+              - one frozen train step of wavlm-large at B=16: ms, peak memory;
+              - migration: the port writes wavlm-large as a reference .pt,
+                its import CLI infers the config (stable LN, gated bias, 16
+                heads) and the same tree exactly, the logits equal the
+                source's, and its eval CLI scores phase 5d's manifest with
+                the import; the files are removed
+Then the script's wall time, the `kernels` line and, last,
+{"ok": true, "device": {...}}.
 
 A tolerance `tol` is held as the JAX package's tests hold theirs:
 |kernel - plain| <= tol * (1 + |plain|) elementwise (rtol = atol = tol).
@@ -157,6 +179,11 @@ PREDICT_REPEATS = 5
 LONG_CLIP_SECONDS = 12.0
 STREAM_CHUNK_SECONDS = 0.5
 WIRE_TOL = 1e-5      # int16 wire vs f32 wire on PCM: the same values reach the same ops
+LARGE_PRESETS = ("wav2vec2-large", "wavlm-large")   # hubert-large has wav2vec2-large's config
+LARGE_AGREE_LAYERS = 2           # 8a: both encoders cut to 2 layers, full width
+LARGE_BATCHES = ((4, REQUESTS_B4), (32, REQUESTS_B128))   # 32: scripts/tpu_large_backbones.py
+LARGE_TAIL_B = 32                # 8c: A4's layer-norm route as a kernel
+LARGE_TRAIN_STEPS = 3
 SOURCE = "multilingual_multimodal_speech_emotion_recognition_tpu_torch/csrc/{}.cu"
 REPLACES = "multilingual_multimodal_speech_emotion_recognition_tpu/ops/pallas_kernels.py:{}"
 
@@ -350,9 +377,11 @@ def residual_stack_bound(B: int, L: int, D: int):
     return bound(nbytes, 2 * 2 * B * L * D * D / H100_F32_FLOPS)
 
 
-def conv_tail_inputs(torch, B: int, T1: int, C: int, dtype, *, has_ln: bool, seed: int):
-    """The tail's seven-layer stack (He-scaled kernels [C_out, C_in, K]) and
-    a layer-0 output x1 [B, T1, C] shaped like a GELU's."""
+def conv_tail_inputs(torch, B: int, T1: int, C: int, dtype, *, has_ln: bool, seed: int,
+                     bias=None):
+    """The tail's seven-layer stack (He-scaled kernels [C_out, C_in, K];
+    biases where `bias`, by default with the LN) and a layer-0 output x1
+    [B, T1, C] shaped like a GELU's."""
     from multilingual_multimodal_speech_emotion_recognition_tpu_torch.ops import (
         conv_tail as ct)
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -360,8 +389,9 @@ def conv_tail_inputs(torch, B: int, T1: int, C: int, dtype, *, has_ln: bool, see
     convs = [{"kernel": rnd(C, 1, 10).to(dtype)}]
     for K in ct.TAIL_KERNELS:
         conv = {"kernel": (rnd(C, C, K) * (2.0 / (K * C)) ** 0.5).to(dtype)}
-        if has_ln:
+        if has_ln if bias is None else bias:
             conv["bias"] = (0.1 * rnd(C)).to(dtype)
+        if has_ln:
             conv["ln"] = {"scale": 1 + 0.1 * rnd(C), "bias": 0.1 * rnd(C)}
         convs.append(conv)
     x1 = torch.nn.functional.gelu(rnd(B, T1, C)).to(dtype)
@@ -432,12 +462,14 @@ def pooling_bound(B: int, S: int, D: int, dtype):
     return bound(nbytes, op_s)
 
 
-def card_against_cpu(torch, mdl, cfg, batch: dict, tol: float) -> dict:
-    """model_forward of one small model on the card and on the CPU: each
-    output's max |card - CPU|; raises where one is out of tolerance."""
+def card_against_cpu(torch, mdl, cfg, batch: dict, tol: float, cpu_params=None) -> dict:
+    """model_forward of one model (random CPU parameters from seed 3 unless
+    given) on the card and on the CPU: each output's max |card - CPU|;
+    raises where one is out of tolerance."""
     from multilingual_multimodal_speech_emotion_recognition_tpu_torch.utils.runtime import (
         tree_to)
-    cpu_params = mdl.init_model(cfg, torch.Generator().manual_seed(3), "cpu")
+    if cpu_params is None:
+        cpu_params = mdl.init_model(cfg, torch.Generator().manual_seed(3), "cpu")
     want = mdl.model_forward(cpu_params, cfg, batch)
     got = mdl.model_forward(tree_to(cpu_params, "cuda"), cfg, batch)
     torch.cuda.synchronize()
@@ -1305,6 +1337,303 @@ def serve_phases(torch, wrappers, smi: str, cfg, work: Path, *, device: str = "c
     return a1
 
 
+def large_config(preset: str, **audio):
+    """The flagship config (XLM-R-base, the 35-layer head, bf16) with a
+    large audio preset, its fields replaced by `audio`."""
+    import dataclasses
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.config import (
+        AUDIO_BACKBONE_PRESETS, ModelConfig)
+    return ModelConfig(compute_dtype="bfloat16", audio=dataclasses.replace(
+        AUDIO_BACKBONE_PRESETS[preset](), **audio))
+
+
+def large_backbone_phases(torch, wrappers, smi: str, work: Path, manifest: str) -> dict:
+    """Phase 8 (see the module docstring). Returns each kernel's launches on
+    the paths it drives, and A4's layer-norm route timed as a kernel."""
+    import dataclasses
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.cli import (
+        eval as eval_cli, import_checkpoint)
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.config import (
+        TrainConfig, XLMRConfig, config_from_json)
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.models import (
+        layers, model as mdl, ref_convert, wav2vec2 as w2v)
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.ops import (
+        conv_tail as ct)
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.train import (
+        checkpoint as ckpt, optimizer as opt_lib, train_step as ts)
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.utils.runtime import (
+        tree_to)
+    t_start = time.perf_counter()
+    launches = dict.fromkeys(KERNEL_NAMES, 0)
+    bf16 = torch.bfloat16
+
+    # 8a. card against CPU at full width, both encoders cut to 2 layers, on
+    # 1 s rows (row 1 padded to 0.6 s) with precomputed front-end features
+    rng = np.random.default_rng(8)
+    B, T, S = 4, SAMPLE_RATE, 10
+    mask = np.ones((B, T), np.float32)
+    mask[1, int(0.6 * T):] = 0
+    rows = {"audio": rng.standard_normal((B, T)).astype(np.float32) * mask,
+            "audio_mask": mask, "text_ids": rng.integers(2, 1000, (B, S)).astype(np.int32),
+            "text_mask": np.ones((B, S), np.float32),
+            "quality_feats": rng.standard_normal((B, 8)).astype(np.float32),
+            "cond_feats": rng.standard_normal((B, 12)).astype(np.float32)}
+    for preset in LARGE_PRESETS:
+        cfg = dataclasses.replace(large_config(preset, num_hidden_layers=LARGE_AGREE_LAYERS),
+                                  text=XLMRConfig(num_hidden_layers=LARGE_AGREE_LAYERS))
+        cpu_params = mdl.init_model(cfg, torch.Generator().manual_seed(3), "cpu")
+        for dtype, tol in AGREE_TOL.items():
+            diffs = card_against_cpu(torch, mdl, dataclasses.replace(cfg, compute_dtype=dtype),
+                                     rows, tol, cpu_params=cpu_params)
+            emit({"phase": "agree", "preset": preset, "layers": LARGE_AGREE_LAYERS,
+                  "dtype": dtype, "tol": tol, "B": B, "seconds": 1.0, "max_abs_diff": diffs})
+        del cpu_params
+
+    # 8c's kernel half: A4's layer-norm route at [32, 12799, 512] bf16,
+    # with conv biases (wav2vec2-large) and without (WavLM-Large)
+    C = 512
+    T1 = (CLIP_SAMPLES - 10) // 5 + 1
+    ln_route = {"max_abs_err": {}}
+    for label, bias in (("bias", True), ("no bias", False)):
+        convs, x1 = conv_tail_inputs(torch, LARGE_TAIL_B, T1, C, bf16, has_ln=True, seed=32,
+                                     bias=bias)
+        got = ct.conv_tail(convs, x1, has_ln=True)
+        want = ct.conv_tail_plain(convs, x1, has_ln=True)
+        torch.cuda.synchronize()
+        ln_route["max_abs_err"][label] = check_close(f"conv_tail LN route {label}", got, want,
+                                                     BF16_TOL["conv_tail"])
+        del got, want
+        if not bias:
+            continue
+        x_cf = x1.transpose(1, 2).contiguous()
+
+        def cudnn_path():
+            x = x_cf
+            for conv in convs[1:]:
+                x = layers.gelu(w2v.channel_layer_norm(conv["ln"], w2v._conv1d(conv, x, 2),
+                                                      1e-5))
+            return x
+
+        (bound_ms, bound_by), flops = conv_tail_bound(LARGE_TAIL_B, T1, C, bf16)
+        # the LN's scale and shift, f32, read once besides
+        ln_bytes = len(ct.TAIL_KERNELS) * 2 * C * 4
+        bound_ms = max(bound_ms, 1e3 * ln_bytes / H100_BYTES_PER_S)
+        ms = cuda_ms(lambda: ct.conv_tail(convs, x1, has_ln=True), 10, warmup=1)
+        ln_route.update({
+            "B": LARGE_TAIL_B, "T1": T1, "C": C, "ms": ms, "tflop_per_s": flops / ms / 1e9,
+            "plain_ms": cuda_ms(lambda: ct.conv_tail_plain(convs, x1, has_ln=True), 3,
+                                warmup=1),
+            "cudnn_path_ms": cuda_ms(cudnn_path, 10, warmup=1),
+            "bound_ms": bound_ms, "bound_by": bound_by, "ms_over_bound": ms / bound_ms})
+        del convs, x1, x_cf
+    emit({"phase": "kernel", "name": "conv_tail", "route": "layer norm", "card": smi,
+          "tol": BF16_TOL["conv_tail"], **ln_route})
+    torch.cuda.empty_cache()
+
+    # the base preset first, at the same shapes, for comparison
+    for preset in ("wav2vec2-base",) + LARGE_PRESETS:
+        cfg = large_config(preset)
+        params = mdl.init_model(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+        # 8b. model_forward, 4 s clips, 32 tokens, the DSP on worst-case audio
+        for B, requests in LARGE_BATCHES:
+            batch = example_batch(B, T=CLIP_SAMPLES, S=TEXT_TOKENS, vocab=cfg.text.vocab_size)
+            del batch["quality_feats"], batch["cond_feats"]
+            batch["audio"] = worst_case_dsp_audio(B, CLIP_SAMPLES, seed=B)
+            batch["audio_mask"] = np.ones_like(batch["audio"])
+            batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+            mdl.model_forward(params, cfg, batch).logits.cpu()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts(wrappers)
+            times = []
+            for _ in range(requests):
+                t0 = time.perf_counter()
+                out = mdl.model_forward(params, cfg, batch)
+                logits = out.logits.cpu()
+                times.append(time.perf_counter() - t0)
+            count = counts(wrappers)
+            if count["residual_stack"] != requests:
+                raise AssertionError(f"{preset} B={B}: residual_stack launched "
+                                     f"{count['residual_stack']} times in {requests} forwards")
+            launches["residual_stack"] += count["residual_stack"]
+            if tuple(logits.shape) != (B, cfg.num_labels):
+                raise AssertionError(f"{preset} B={B}: logits {tuple(logits.shape)}")
+            for field, v in zip(out._fields, out):
+                if not torch.isfinite(v.float()).all():
+                    raise AssertionError(f"{preset} B={B}: {field} is not finite")
+            ms = 1e3 * sorted(times)[len(times) // 2]
+            emit({"phase": "path", "path": "model_forward by audio backbone, DSP on "
+                  "worst-case audio", "preset": preset,
+                  "same_config": ["hubert-large"] if preset == "wav2vec2-large" else [],
+                  "B": B, "seconds": 4.0, "text_tokens": TEXT_TOKENS, "card": smi,
+                  "requests": requests, "ms": ms, "ms_all": [1e3 * t for t in times],
+                  "utt_per_s": B / (ms / 1e3),
+                  "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                  "launches": count})
+            del batch, out
+        if preset == "wav2vec2-base":
+            del params
+            continue
+
+        # 8c. feature_encoder(allow_fused=True): the layer-norm route on the
+        # path, against the unfused layer-norm extractor
+        w2v_params = mdl.cast_floating(params["audio_backbone"], bf16)
+        for B, calls in ((4, 5), (32, 3)):
+            record = fused_extractor_path(torch, wrappers, w2v_params, cfg.audio, B, calls,
+                                          vocab=cfg.text.vocab_size)
+            launches["conv_tail"] += record["launches"]["conv_tail"]
+            emit({"phase": "path", "path": "feature_encoder(allow_fused=True), layer norm",
+                  "preset": preset, "conv_bias": cfg.audio.conv_bias, "B": B, "seconds": 4.0,
+                  "card": smi, **record})
+        del w2v_params
+        torch.cuda.empty_cache()
+        if preset != "wavlm-large":
+            del params
+            torch.cuda.empty_cache()
+            continue
+
+        # 8d. one frozen train step at B=16 (augmentation in the step, zero
+        # front-end features), timed after a first step
+        heads = cloned({k: params[k] for k in ("cross", "classifier")})
+        frozen = cloned(params["audio_backbone"])
+        opt = opt_lib.make_train_optimizer(params, lr=1e-4, total_steps=100)
+        state = opt.init(params)
+        step = ts.make_train_step(cfg, TrainConfig(batch_size=TRAIN_B, augment=True), opt)
+        host = example_batch(TRAIN_B, T=CLIP_SAMPLES, S=TEXT_TOKENS, vocab=cfg.text.vocab_size)
+        host["labels"] = np.arange(TRAIN_B, dtype=np.int32) % cfg.num_labels
+        batch = {k: torch.from_numpy(v).cuda() for k, v in host.items()}
+        step(params, state, batch, 0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for i in range(LARGE_TRAIN_STEPS):
+            t0 = time.perf_counter()
+            metrics = step(params, state, batch, 1 + i)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        changed = sum(not torch.equal(t, dict(tree_leaves(params))[p])
+                      for p, t in tree_leaves(heads))
+        same = all(torch.equal(t, dict(tree_leaves(params["audio_backbone"]))[p])
+                   for p, t in tree_leaves(frozen))
+        if not np.isfinite(float(metrics.loss)) or not changed or not same:
+            raise AssertionError(f"{preset} train step: loss {float(metrics.loss)}, {changed} "
+                                 f"head leaves changed, backbone unchanged {same}")
+        emit({"phase": "path", "path": "train step, frozen backbones, large backbone",
+              "preset": preset, "card": smi, "B": TRAIN_B, "seconds": 4.0,
+              "text_tokens": TEXT_TOKENS, "augment": True, "steps": LARGE_TRAIN_STEPS,
+              "step_ms": 1e3 * sorted(times)[len(times) // 2],
+              "step_ms_all": [1e3 * t for t in times],
+              "max_memory_allocated": torch.cuda.max_memory_allocated(),
+              "loss": float(metrics.loss), "head_leaves_changed": changed,
+              "backbone_bitwise_unchanged": same})
+        del heads, frozen, opt, state, step, batch
+        torch.cuda.empty_cache()
+
+        # 8e. migration: the port writes the model as a reference .pt (the
+        # positional conv as a plain weight, so that the round trip is
+        # exact), its import CLI reads it back, its eval CLI scores phase
+        # 5d's manifest with the import
+        t0 = time.perf_counter()
+        ref_path, imported = work / "large_reference.pt", work / "large_imported"
+        sds = ref_convert.reference_state_dicts_from_params(params, cfg, pos_conv_style="plain")
+        sds.update(epoch=3, f1=0.5, optimizer={"state": {}, "param_groups": []}, scheduler={})
+        torch.save(sds, ref_path)
+        del sds
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        report = import_checkpoint.main(["--reference_checkpoint", str(ref_path),
+                                         "--out", str(imported)])
+        import_s = time.perf_counter() - t0
+        imported_cfg = config_from_json(ckpt.load_config_json(imported)).model
+        if imported_cfg != cfg:
+            raise AssertionError(f"import inferred {imported_cfg.audio}, not {cfg.audio}")
+        got_params, _ = ckpt.restore_checkpoint(imported, device="cuda")
+        differ = [p for p, t in tree_leaves(params)
+                  if not p.startswith("asr_proj") and not torch.equal(
+                      dict(tree_leaves(got_params))[p], t)]
+        if differ or report["left_at_init"] != ["asr_proj"]:
+            raise AssertionError(f"import: {len(differ)} leaves differ ({differ[:3]}), left at "
+                                 f"init {report['left_at_init']}")
+        batch = example_batch(4, T=CLIP_SAMPLES, S=TEXT_TOKENS, vocab=cfg.text.vocab_size)
+        want = mdl.model_forward(params, cfg, batch).logits.cpu()
+        got = mdl.model_forward(got_params, imported_cfg, batch).logits.cpu()
+        if not torch.equal(got, want):
+            raise AssertionError(f"import: logits differ by {float((got - want).abs().max())}")
+        del got_params, params
+        torch.cuda.empty_cache()
+        reset_counts(wrappers)
+        t0 = time.perf_counter()
+        res = eval_cli.main(["--manifest", manifest, "--checkpoint", str(imported),
+                             "--batch_size", "8", "--dataset_root", str(work / "datasets")])
+        eval_s = time.perf_counter() - t0
+        count = counts(wrappers)
+        if res["logits"].shape != (MANIFEST_CLIPS, cfg.num_labels) or not np.isfinite(
+                res["logits"]).all() or count["residual_stack"] != len(res["step_seconds"]):
+            raise AssertionError(f"eval CLI on the import: logits {res['logits'].shape}, "
+                                 f"launches {count} in {len(res['step_seconds'])} steps")
+        launches["residual_stack"] += count["residual_stack"]
+        emit({"phase": "path", "path": "migration: reference .pt -> import CLI -> eval CLI",
+              "preset": preset, "card": smi, "reference_pt_bytes": ref_path.stat().st_size,
+              "write_s": write_s, "import_cli_s": import_s, "eval_cli_s": eval_s,
+              "inferred": {"do_stable_layer_norm": imported_cfg.audio.do_stable_layer_norm,
+                           "gated_relpos_bias": imported_cfg.audio.gated_relpos_bias,
+                           "heads": imported_cfg.audio.num_attention_heads},
+              "tree_exact": True, "logits_exact": True, "report": report,
+              "eval_clips_per_s": MANIFEST_CLIPS / res["pass_seconds"], "launches": count})
+        ref_path.unlink()
+        shutil.rmtree(imported)
+    emit({"phase": "path", "path": "large backbones (phase 8)",
+          "seconds": time.perf_counter() - t_start})
+    return {"launches": launches, "ln_route": ln_route}
+
+
+def fused_extractor_path(torch, wrappers, w2v_params: dict, audio_cfg, B: int, calls: int,
+                         vocab: int) -> dict:
+    """`feature_encoder(allow_fused=True)` `calls` times on B 4 s clips in
+    bf16, with the launch counters set to 0 just before: one conv_tail
+    launch a call, the unfused extractor's frame mask and, within
+    BF16_TOL["conv_tail"], its features; the fused and unfused ms and the
+    transpose of conv 0's output that the fused path adds."""
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.models import (
+        wav2vec2 as w2v)
+    bf16 = torch.bfloat16
+    batch = example_batch(B, T=CLIP_SAMPLES, S=TEXT_TOKENS, vocab=vocab)
+    mask = torch.from_numpy(batch["audio_mask"]).cuda()
+    wave = w2v.normalize_waveform(torch.from_numpy(batch["audio"]).cuda(), mask).to(bf16)
+    unfused, unfused_m = w2v.feature_encoder(w2v_params, audio_cfg, wave, mask)
+    torch.cuda.synchronize()
+    reset_counts(wrappers)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        feats, frame_mask = w2v.feature_encoder(w2v_params, audio_cfg, wave, mask,
+                                                allow_fused=True)
+    end.record()
+    torch.cuda.synchronize()
+    count = counts(wrappers)
+    what = f"feature_encoder ({audio_cfg.feat_extract_norm} norm) B={B}"
+    if count["conv_tail"] != calls:
+        raise AssertionError(f"{what}: conv_tail launched {count['conv_tail']} times in "
+                             f"{calls} calls")
+    T7 = audio_cfg.feat_extract_output_lengths(CLIP_SAMPLES)
+    if tuple(feats.shape) != (B, T7, audio_cfg.conv_dim[-1]) or feats.dtype != bf16:
+        raise AssertionError(f"{what}: {tuple(feats.shape)} {feats.dtype}")
+    if not torch.isfinite(feats.float()).all():
+        raise AssertionError(f"{what}: features not finite")
+    if not torch.equal(frame_mask, unfused_m):
+        raise AssertionError(f"{what}: frame masks differ")
+    err = check_close(f"{what}: fused vs unfused", feats, unfused, BF16_TOL["conv_tail"])
+    T1 = (CLIP_SAMPLES - audio_cfg.conv_kernel[0]) // audio_cfg.conv_stride[0] + 1
+    x0 = torch.empty(B, audio_cfg.conv_dim[0], T1, dtype=bf16, device="cuda")
+    return {"calls": calls, "launches": count, "max_abs_diff_vs_unfused": err,
+            "tol": BF16_TOL["conv_tail"],
+            "unfused_range": [float(unfused.min()), float(unfused.max())],
+            "fused_ms": start.elapsed_time(end) / calls,
+            "unfused_ms": cuda_ms(lambda: w2v.feature_encoder(w2v_params, audio_cfg, wave, mask),
+                                  calls, warmup=1),
+            "transpose_ms": cuda_ms(lambda: x0.transpose(1, 2).contiguous(), 10)}
+
+
 def reset_counts(wrappers) -> None:
     for w in wrappers.values():
         w.launches = 0
@@ -1315,6 +1644,7 @@ def counts(wrappers) -> dict:
 
 
 def main() -> int:
+    t_main = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1660,47 +1990,12 @@ def main() -> int:
     w2v_params = mdl.cast_floating(params["audio_backbone"], bf16)
     del params
     torch.cuda.empty_cache()
-    fused_path = {}
     for B, calls in ((4, 5), (128, 3)):
-        batch = example_batch(B, T=CLIP_SAMPLES, S=TEXT_TOKENS, vocab=cfg.text.vocab_size)
-        mask = torch.from_numpy(batch["audio_mask"]).cuda()
-        wave = w2v.normalize_waveform(torch.from_numpy(batch["audio"]).cuda(), mask).to(bf16)
-        unfused, unfused_m = w2v.feature_encoder(w2v_params, cfg.audio, wave, mask)
-        torch.cuda.synchronize()
-        reset_counts(wrappers)
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(calls):
-            feats, frame_mask = w2v.feature_encoder(w2v_params, cfg.audio, wave, mask,
-                                                    allow_fused=True)
-        end.record()
-        torch.cuda.synchronize()
-        count = counts(wrappers)
-        if count["conv_tail"] != calls:
-            raise AssertionError(f"feature_encoder B={B}: conv_tail launched "
-                                 f"{count['conv_tail']} times in {calls} calls")
-        launches["conv_tail"] += count["conv_tail"]
-        T7 = cfg.audio.feat_extract_output_lengths(CLIP_SAMPLES)
-        if tuple(feats.shape) != (B, T7, cfg.audio.conv_dim[-1]) or feats.dtype != bf16:
-            raise AssertionError(f"feature_encoder B={B}: {tuple(feats.shape)} {feats.dtype}")
-        if not torch.isfinite(feats.float()).all():
-            raise AssertionError(f"feature_encoder B={B}: features not finite")
-        if not torch.equal(frame_mask, unfused_m):
-            raise AssertionError(f"feature_encoder B={B}: frame masks differ")
-        err = check_close(f"feature_encoder fused vs unfused B={B}", feats, unfused,
-                          BF16_TOL["conv_tail"])
-        x0 = torch.empty(B, cfg.audio.conv_dim[0], T1, dtype=bf16, device="cuda")
-        fused_path[B] = {
-            "calls": calls, "launches": count, "max_abs_diff_vs_unfused": err,
-            "tol": BF16_TOL["conv_tail"], "unfused_range": [float(unfused.min()),
-                                                            float(unfused.max())],
-            "fused_ms": start.elapsed_time(end) / calls,
-            "unfused_ms": cuda_ms(lambda: w2v.feature_encoder(w2v_params, cfg.audio,
-                                                              wave, mask), calls, warmup=1),
-            "transpose_ms": cuda_ms(lambda: x0.transpose(1, 2).contiguous(), 10)}
+        record = fused_extractor_path(torch, wrappers, w2v_params, cfg.audio, B, calls,
+                                      vocab=cfg.text.vocab_size)
+        launches["conv_tail"] += record["launches"]["conv_tail"]
         emit({"phase": "path", "path": "feature_encoder(allow_fused=True)", "B": B,
-              "seconds": 4.0, "card": smi, **fused_path[B]})
-        del feats, unfused, x0
+              "seconds": 4.0, "card": smi, **record})
     del w2v_params
     torch.cuda.empty_cache()
 
@@ -1864,6 +2159,9 @@ def main() -> int:
         launches["residual_stack"] += train_phases(torch, wrappers, smi, cfg, small, work,
                                                    manifest)
         launches["residual_stack"] += serve_phases(torch, wrappers, smi, cfg, work)
+        large = large_backbone_phases(torch, wrappers, smi, work, manifest)
+        for kname, n in large["launches"].items():
+            launches[kname] += n
     finally:
         shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -1871,6 +2169,7 @@ def main() -> int:
     for kname, n in launches.items():
         if n < 1:
             raise AssertionError(f"{kname} was launched no time on its path")
+    emit({"phase": "total", "seconds": time.perf_counter() - t_main})
     t4 = timing[4]
     tail128 = tail["timing"][128]
     w2v_site = attn["timing"]["wav2vec2_self"]
@@ -1886,12 +2185,14 @@ def main() -> int:
          "at_tta_rows": {B: {**timing[B], "plan": plans[B]} for B in A1_TTA_BATCHES}},
         {"name": "conv_tail", "route": "cuda", "source": SOURCE.format("conv_tail"),
          "replaces": REPLACES.format(467), "launches": launches["conv_tail"],
-         "max_abs_err": max(tail["max_abs_err"].values()), "tol": BF16_TOL["conv_tail"],
+         "max_abs_err": max(*tail["max_abs_err"].values(),
+                            *large["ln_route"]["max_abs_err"].values()),
+         "tol": BF16_TOL["conv_tail"],
          "ms": tail128["ms"], "plain_ms": tail128["plain_ms"],
          "bound_ms": tail128["bound_ms"], "bound_by": tail128["bound_by"],
          "ms_over_bound": tail128["ms_over_bound"], "tflop_per_s": tail128["tflop_per_s"],
          "library_ms": None, "cudnn_path_ms": tail128["cudnn_path_ms"],
-         "B": 128, "at_B4": tail["timing"][4]},
+         "B": 128, "at_B4": tail["timing"][4], "ln_route": large["ln_route"]},
         {"name": "flash_attention", "route": "cuda", "source": SOURCE.format("flash_attention"),
          "replaces": REPLACES.format(295), "launches": launches["flash_attention"],
          "max_abs_err": max(attn["max_abs_err"].values()), "tol": BF16_TOL["attention"],

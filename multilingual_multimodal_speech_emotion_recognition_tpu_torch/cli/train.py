@@ -9,7 +9,10 @@ repo's cli/train.py, and they build the same Config, with `--device`
 (default cuda) in place of `--platform`. `--prng_impl` selects JAX's
 random-number backend and has no counterpart here: the port's draws come
 from torch generators seeded by `--seed`. Flags whose modules are not
-ported yet exit with the ROADMAP item that ports them. Checkpoints go to
+ported yet exit with the ROADMAP item that ports them. `--audio_backbone`
+picks a preset of config.AUDIO_BACKBONE_PRESETS; `--wav2vec2_checkpoint`
+and `--xlmr_checkpoint` load Hugging Face backbones (a model directory or
+hub name, through transformers, which only these flags need). Checkpoints go to
 --save_dir in the port's format (train/checkpoint.py); the port's eval
 CLI scores them. Without a card the CLI exits non-zero unless
 `--device cpu` is given.
@@ -21,7 +24,7 @@ import argparse
 import sys
 from typing import Optional, Sequence
 
-AUDIO_BACKBONES = ("wav2vec2-base", "wav2vec2-large", "hubert-large", "wavlm-large")
+from ..config import AUDIO_BACKBONE_PRESETS
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -59,10 +62,16 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--no_quality_gates", action="store_true")
     p.add_argument("--no_audio_conditioning", action="store_true")
     p.add_argument("--use_asr", action="store_true", help="not ported yet")
-    p.add_argument("--audio_backbone", choices=AUDIO_BACKBONES, default="wav2vec2-base",
-                   help="only wav2vec2-base is ported yet")
-    p.add_argument("--wav2vec2_checkpoint", type=str, default=None, help="not ported yet")
-    p.add_argument("--xlmr_checkpoint", type=str, default=None, help="not ported yet")
+    p.add_argument("--audio_backbone", choices=list(AUDIO_BACKBONE_PRESETS),
+                   default="wav2vec2-base",
+                   help="the audio encoder's preset; the large ones use the "
+                        "layer-norm conv stack and the stable pre-LN encoder")
+    p.add_argument("--wav2vec2_checkpoint", type=str, default=None,
+                   help="Hugging Face Wav2Vec2/HuBERT/WavLM model (directory or name) "
+                        "whose weights replace the audio backbone's")
+    p.add_argument("--xlmr_checkpoint", type=str, default=None,
+                   help="Hugging Face XLM-R model (directory or name) whose weights "
+                        "replace the text backbone's")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to run on (default cuda; cpu for tiny models)")
     p.add_argument("--mesh_model", type=int, default=1, help="not ported yet")
@@ -97,12 +106,6 @@ def not_ported(args: argparse.Namespace) -> Optional[str]:
             or args.process_id is not None:
         return ("--coordinator_address / --num_processes / --process_id: multi-host "
                 "training is not ported yet, ROADMAP Queue A item 16")
-    if args.wav2vec2_checkpoint or args.xlmr_checkpoint:
-        return ("--wav2vec2_checkpoint / --xlmr_checkpoint: hf_convert is not ported "
-                "yet, ROADMAP Queue A item 12")
-    if args.audio_backbone != "wav2vec2-base":
-        return (f"--audio_backbone {args.audio_backbone}: the large presets are not "
-                "ported yet, ROADMAP Queue A item 12")
     if args.use_asr:
         return "--use_asr: ASR (Whisper) is not ported yet, ROADMAP Queue A item 14"
     return None
@@ -110,7 +113,7 @@ def not_ported(args: argparse.Namespace) -> Optional[str]:
 
 def build_config(args: argparse.Namespace):
     """The Config the repo's cli/train.py builds from the same flags."""
-    from ..config import Config, DataConfig, ModelConfig, TrainConfig, Wav2Vec2Config
+    from ..config import Config, DataConfig, ModelConfig, TrainConfig
     train_kw = dict(
         epochs=args.epochs, batch_size=args.batch_size, lr=args.lr,
         warmup_ratio=args.warmup_ratio, augment=args.augment,
@@ -150,9 +153,26 @@ def build_config(args: argparse.Namespace):
             compute_dtype="bfloat16" if args.use_amp else "float32",
             use_quality_gates=not args.no_quality_gates,
             use_audio_conditioning=not args.no_audio_conditioning,
-            use_asr=args.use_asr, audio=Wav2Vec2Config()),
+            use_asr=args.use_asr, audio=AUDIO_BACKBONE_PRESETS[args.audio_backbone]()),
         data=DataConfig(**data_kw),
         train=TrainConfig(**train_kw))
+
+
+def load_pretrained(args: argparse.Namespace) -> Optional[dict]:
+    """The Hugging Face state dicts the flags name, as train's `pretrained`
+    (AutoModel resolves Wav2Vec2Model, HubertModel or WavLMModel, and
+    XLMRobertaModel), or None."""
+    names = {"wav2vec2_state": args.wav2vec2_checkpoint, "xlmr_state": args.xlmr_checkpoint}
+    if not any(names.values()):
+        return None
+    try:
+        from transformers import AutoModel
+    except ImportError as e:
+        raise SystemExit("--wav2vec2_checkpoint / --xlmr_checkpoint load Hugging Face "
+                         "models through the transformers package, which is not "
+                         "installed") from e
+    return {key: AutoModel.from_pretrained(name).state_dict()
+            for key, name in names.items() if name}
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
@@ -169,12 +189,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     from ..train import loop
 
     cfg = build_config(args)
-    if args.two_phase:
-        result = loop.train_two_phase(cfg, train_manifest=args.train_manifest,
-                                      val_manifest=args.val_manifest, device=device)
-    else:
-        result = loop.train(cfg, train_manifest=args.train_manifest,
-                            val_manifest=args.val_manifest, device=device)
+    run = loop.train_two_phase if args.two_phase else loop.train
+    result = run(cfg, train_manifest=args.train_manifest, val_manifest=args.val_manifest,
+                 pretrained=load_pretrained(args), device=device)
     print(f"Best F1: {result['best_f1']:.4f}")
     return result
 

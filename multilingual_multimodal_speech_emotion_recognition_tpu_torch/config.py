@@ -1,7 +1,8 @@
 """Configuration of the port: its own copies of the JAX package's
 ModelConfig, DataConfig and TrainConfig (config.py), Wav2Vec2Config
 (models/wav2vec2.py) and XLMRConfig (models/xlmr.py), with the same fields
-and defaults, so a JAX checkpoint's config JSON loads here unchanged.
+and defaults, so a JAX checkpoint's config JSON loads here unchanged, and
+of its audio backbone presets (`AUDIO_BACKBONE_PRESETS`).
 `Config` holds the model, data and train sections; the JAX package's mesh
 section waits for the parallelism slice (ROADMAP Queue A item 16) and is
 ignored when read."""
@@ -45,6 +46,40 @@ class Wav2Vec2Config:
         for k, s in zip(self.conv_kernel, self.conv_stride):
             lengths = (lengths - k) // s + 1
         return lengths
+
+
+def wav2vec2_large_audio_config() -> Wav2Vec2Config:
+    """facebook/wav2vec2-large: 24 pre-LN layers, 16 heads, hidden 1024, a
+    layer-norm conv stack with conv biases."""
+    return Wav2Vec2Config(
+        hidden_size=1024, num_hidden_layers=24, num_attention_heads=16,
+        intermediate_size=4096, conv_bias=True,
+        do_stable_layer_norm=True, feat_extract_norm="layer")
+
+
+def hubert_large_audio_config() -> Wav2Vec2Config:
+    """facebook/hubert-large-ls960-ft: the wav2vec2-large skeleton and key
+    layout (models/hf_convert.wav2vec2_from_hf converts it)."""
+    return wav2vec2_large_audio_config()
+
+
+def wavlm_large_audio_config() -> Wav2Vec2Config:
+    """microsoft/wavlm-large: the wav2vec2-large skeleton without conv
+    biases, plus the gated bucketed relative position bias (320 buckets,
+    max distance 800)."""
+    return Wav2Vec2Config(
+        hidden_size=1024, num_hidden_layers=24, num_attention_heads=16,
+        intermediate_size=4096, conv_bias=False,
+        do_stable_layer_norm=True, feat_extract_norm="layer",
+        gated_relpos_bias=True, num_buckets=320, max_bucket_distance=800)
+
+
+AUDIO_BACKBONE_PRESETS = {
+    "wav2vec2-base": Wav2Vec2Config,
+    "wav2vec2-large": wav2vec2_large_audio_config,
+    "hubert-large": hubert_large_audio_config,
+    "wavlm-large": wavlm_large_audio_config,
+}
 
 
 @dataclasses.dataclass(frozen=True)

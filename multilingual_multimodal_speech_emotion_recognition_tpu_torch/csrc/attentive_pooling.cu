@@ -6,8 +6,9 @@
 // sc = tanh(x . W1 + b1) . w2 + b2, -1e30 on masked frames; an online
 // softmax over time with running max m (from -1e30), e = exp(sc - m) * mask,
 // normaliser l; s1 = sum e x and s2 = sum e x^2 rescaled as m moves; then
-// mean = s1 / max(l, 1e-30), std = sqrt(max(s2 / l - mean^2, 0) + 1e-6).
-// Output [B, 2D] = mean | std in the type of x.
+// mean = s1 / max(l, 1e-30), std = sqrt(max(s2 / l - mean^2, 0) + 1e-6)
+// (the bf16 route; the f32 route keeps the variance about a running mean,
+// see below). Output [B, 2D] = mean | std in the type of x.
 //
 // Bound on an H100: reading x. At the audio pooling site (B=128, S=199,
 // D=768, bf16) x is 39 MB, 12 us at 3.35 TB/s; the score MLP's 5.0 GFLOP
@@ -47,7 +48,13 @@
 // batch row walks S in tiles of 32 frames kept in shared memory as f32; the
 // MLP runs on the CUDA cores in f32 with each thread owning one hidden
 // unit; the H hidden units of a frame are summed warp by warp and then over
-// warps in a fixed order.
+// warps in a fixed order. The statistics are a weighted running mean mu
+// and sum of squared deviations M2 (West's update, frame by frame:
+// l += e, mu += (e / l)(x - mu), M2 += e (x - mu_old)(x - mu_new); when m
+// moves, l and M2 scale by exp(m_old - m_new)), so std = sqrt(M2 / l +
+// 1e-6) never takes the difference E[x^2] - mean^2: where a row's weight
+// sits on one frame that difference is a few f32 ulps of x^2 and moves std
+// by up to 4e-4 through the square root at its 1e-6 floor.
 
 #include <cooperative_groups.h>
 #include <cuda.h>
@@ -96,8 +103,8 @@ attentive_pool(const T* __restrict__ x, const float* __restrict__ mask,
                T* __restrict__ out, int S, int D, int H) {
   extern __shared__ float4 smem4[];
   float* xs = reinterpret_cast<float*>(smem4);  // [kSt][D]
-  float* s1 = xs + kSt * D;                     // [D]  sum e x
-  float* s2 = s1 + D;                           // [D]  sum e x^2
+  float* s1 = xs + kSt * D;                     // [D]  running weighted mean
+  float* s2 = s1 + D;                           // [D]  sum e (x - mean)^2
   float* part = s2 + D;                         // [kSt][H / 32] score partials
   float* sc = part + kSt * kWarps;              // [kSt] masked scores
   float* mk = sc + kSt;                         // [kSt] mask values
@@ -165,35 +172,34 @@ attentive_pool(const T* __restrict__ x, const float* __restrict__ mask,
     for (int r = 0; r < kSt; ++r) tmax = fmaxf(tmax, sc[r]);
     const float m_new = fmaxf(m, tmax);
     const float rescale = expf(m - m_new);
-    float e[kSt];
-    float esum = 0.f;
+    float e[kSt], w[kSt];
+    l *= rescale;
 #pragma unroll
     for (int r = 0; r < kSt; ++r) {
       e[r] = expf(sc[r] - m_new) * mk[r];
-      esum += e[r];
+      l += e[r];
+      w[r] = l > 0.f ? e[r] / l : 0.f;   // the frame's share of the mean
     }
-    l = l * rescale + esum;
     m = m_new;
     for (int d = tid; d < D; d += kThreads) {
-      float a1 = 0.f, a2 = 0.f;
+      float mu = s1[d], m2 = s2[d] * rescale;
 #pragma unroll
       for (int r = 0; r < kSt; ++r) {
         const float xv = xs[r * D + d];
-        a1 = fmaf(e[r], xv, a1);
-        a2 = fmaf(e[r], xv * xv, a2);
+        const float dev = xv - mu;
+        mu = fmaf(w[r], dev, mu);
+        m2 = fmaf(e[r] * dev, xv - mu, m2);
       }
-      s1[d] = s1[d] * rescale + a1;
-      s2[d] = s2[d] * rescale + a2;
+      s1[d] = mu;
+      s2[d] = m2;
     }
   }
 
   const float lf = fmaxf(l, 1e-30f);
   T* ob = out + (size_t)b * 2 * D;
   for (int d = tid; d < D; d += kThreads) {
-    const float mean = s1[d] / lf;
-    const float ex2 = s2[d] / lf;
-    store(ob + d, mean);
-    store(ob + D + d, sqrtf(fmaxf(ex2 - mean * mean, 0.f) + 1e-6f));
+    store(ob + d, s1[d]);
+    store(ob + D + d, sqrtf(fmaxf(s2[d] / lf, 0.f) + 1e-6f));
   }
 }
 

@@ -18,7 +18,7 @@ device it only makes shapes, which the weight bridge uses as its template.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -172,9 +172,11 @@ def mha(params: dict, q: Tensor, k: Tensor, v: Tensor, *, num_heads: int,
     return linear(params["out"], ctx)
 
 
-def layer_at(stacked: dict, i: int) -> dict:
-    """Layer i of stacked [L, ...] parameters {name: {leaf: tensor}}."""
-    return {name: {k: v[i] for k, v in sub.items()} for name, sub in stacked.items()}
+def layer_at(stacked, i: int):
+    """Layer i of stacked [L, ...] parameters (nested dicts of tensors)."""
+    if isinstance(stacked, dict):
+        return {k: layer_at(v, i) for k, v in stacked.items()}
+    return stacked[i]
 
 
 def key_mask_bias(mask: Tensor) -> Tensor:
@@ -183,37 +185,52 @@ def key_mask_bias(mask: Tensor) -> Tensor:
     return bias.masked_fill(mask == 0, -math.inf)[:, None, None, :]
 
 
-def post_ln_encoder_stack(stacked: dict, h: Tensor, attn_bias: Tensor, *,
-                          num_heads: int, eps: float, attention_dropout: float = 0.0,
-                          hidden_dropout: float = 0.0, activation_dropout: float = 0.0,
-                          generator: Optional[torch.Generator] = None,
-                          deterministic: bool = True,
-                          remat: remat_lib.RematSpec = False) -> Tensor:
-    """Post-LN transformer layers over stacked [L, ...] parameters, shared
-    by wav2vec2 and XLM-R. q is scaled by 1/sqrt(Dh) before the product;
-    the softmax runs in f32 and is cast back to h.dtype. In training the
-    dropout sites are the JAX package's: attention weights
-    (attention_dropout), the attention output and the FFN output
-    (hidden_dropout), the FFN's GELU output (activation_dropout; XLM-R has
-    none). `remat` checkpoints each layer (models/remat.py)."""
+def encoder_stack(stacked: dict, h: Tensor, attn_bias: Tensor, *,
+                  num_heads: int, eps: float, pre_ln: bool = False,
+                  logit_bias: Optional[Callable[[dict, Tensor], Tensor]] = None,
+                  attention_dropout: float = 0.0, hidden_dropout: float = 0.0,
+                  activation_dropout: float = 0.0,
+                  generator: Optional[torch.Generator] = None,
+                  deterministic: bool = True,
+                  remat: remat_lib.RematSpec = False) -> Tensor:
+    """Transformer layers over stacked [L, ...] parameters, shared by
+    wav2vec2 and XLM-R. Post-LN blocks by default, LN(x + attn(x)) then
+    LN(x + ffn(x)); `pre_ln` gives the stable-LN blocks, x + attn(LN(x))
+    then x + ffn(LN(x)). q is scaled by 1/sqrt(Dh) before the product; the
+    logits are f32, plus attn_bias, plus logit_bias(layer, attention input)
+    where given (WavLM's gated relative position bias); the softmax runs in
+    f32 and is cast back to h.dtype. In training the dropout sites are the
+    JAX package's: attention weights (attention_dropout), the attention
+    output and the FFN output (hidden_dropout), the FFN's GELU output
+    (activation_dropout; XLM-R has none). `remat` checkpoints each layer
+    (models/remat.py)."""
     B, S, E = h.shape
     H = num_heads
     D = E // H
     scale = D ** -0.5
 
-    def body(h: Tensor, layer: dict, g: Optional[torch.Generator]) -> Tensor:
-        q = (linear(layer["q"], h) * scale).reshape(B, S, H, D)
-        k = linear(layer["k"], h).reshape(B, S, H, D)
-        v = linear(layer["v"], h).reshape(B, S, H, D)
+    def attention(x: Tensor, layer: dict, g: Optional[torch.Generator]) -> Tensor:
+        q = (linear(layer["q"], x) * scale).reshape(B, S, H, D)
+        k = linear(layer["k"], x).reshape(B, S, H, D)
+        v = linear(layer["v"], x).reshape(B, S, H, D)
         logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() + attn_bias
-        attn = torch.softmax(logits, dim=-1).to(h.dtype)
+        if logit_bias is not None:
+            logits = logits + logit_bias(layer, x)
+        attn = torch.softmax(logits, dim=-1).to(x.dtype)
         attn = dropout(g, attn, attention_dropout, deterministic)
         ctx = torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(B, S, E)
-        ctx = dropout(g, linear(layer["out"], ctx), hidden_dropout, deterministic)
-        h = layer_norm(layer["attn_ln"], h + ctx, eps=eps)
-        f = dropout(g, gelu(linear(layer["ffn_in"], h)), activation_dropout, deterministic)
-        f = dropout(g, linear(layer["ffn_out"], f), hidden_dropout, deterministic)
-        return layer_norm(layer["final_ln"], h + f, eps=eps)
+        return dropout(g, linear(layer["out"], ctx), hidden_dropout, deterministic)
+
+    def ffn(x: Tensor, layer: dict, g: Optional[torch.Generator]) -> Tensor:
+        f = dropout(g, gelu(linear(layer["ffn_in"], x)), activation_dropout, deterministic)
+        return dropout(g, linear(layer["ffn_out"], f), hidden_dropout, deterministic)
+
+    def body(h: Tensor, layer: dict, g: Optional[torch.Generator]) -> Tensor:
+        if pre_ln:
+            h = h + attention(layer_norm(layer["attn_ln"], h, eps=eps), layer, g)
+            return h + ffn(layer_norm(layer["final_ln"], h, eps=eps), layer, g)
+        h = layer_norm(layer["attn_ln"], h + attention(h, layer, g), eps=eps)
+        return layer_norm(layer["final_ln"], h + ffn(h, layer, g), eps=eps)
 
     run = remat_lib.apply_remat(body, remat)
     for i in range(stacked["q"]["kernel"].shape[0]):

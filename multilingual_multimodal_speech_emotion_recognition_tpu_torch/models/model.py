@@ -32,7 +32,7 @@ import torch
 from ..config import ModelConfig
 from ..frontend import frontend_process
 from ..ops import pooling as pooling_ops
-from ..utils.runtime import leaves_with_paths, resolve_device, to_device
+from ..utils.runtime import leaves_with_paths, resolve_device, to_device, tree_to
 from . import classifier as clf
 from . import cross_attention as cma
 from . import fusion as fusion_mod
@@ -296,3 +296,21 @@ def model_forward(params: dict, cfg: ModelConfig, batch: dict, *,
                                 asr_feats=batch.get("asr_feats"), **drop)
     return model_heads(params, cfg, a_seq, a_mask, t_seq, t_mask,
                        use_openmax=use_openmax, **drop)
+
+
+def load_pretrained_backbones(params: dict, *, wav2vec2_state=None, xlmr_state=None) -> dict:
+    """The parameters with their backbones replaced by converted Hugging Face
+    state dicts (models/hf_convert.py; layer and conv counts read from the
+    keys), on the parameters' device. A converted backbone must have the
+    configured one's leaves and shapes, or this raises."""
+    from . import hf_convert
+    from .ref_convert import check_shapes
+    device = params["classifier"]["input_proj"]["kernel"].device
+    params = dict(params)
+    for name, state, convert in (("audio_backbone", wav2vec2_state, hf_convert.wav2vec2_from_hf),
+                                 ("text_backbone", xlmr_state, hf_convert.xlmr_from_hf)):
+        if state is not None:
+            tree = convert(state)
+            check_shapes(name, params[name], tree)
+            params[name] = tree_to(tree, device)
+    return params

@@ -1,11 +1,19 @@
-"""wav2vec2-base audio encoder.
+"""The wav2vec2-family audio encoder: wav2vec2-base, wav2vec2-large,
+HuBERT-Large and WavLM-Large.
 
 Counterpart of multilingual_multimodal_speech_emotion_recognition_tpu/
-models/wav2vec2.py for the base preset: masked waveform normalisation, the
-7-layer strided conv extractor with a masked group norm on conv 0, feature
-projection, grouped positional conv, encoder LN and the post-LN layers with
-an additive -inf frame mask. Padded batches give each clip the result it
-would get alone, because every statistic is taken over valid samples only.
+models/wav2vec2.py: masked waveform normalisation, the 7-layer strided conv
+extractor, feature projection, grouped positional conv and the transformer
+layers with an additive -inf frame mask. Two extractors: the base one
+(`feat_extract_norm="group"`: a masked group norm after conv 0) and the
+large one ("layer": a per-frame channel LayerNorm after every conv, with
+conv biases where `conv_bias`). Two layer orders: post-LN (base, encoder
+LN before the stack) and stable pre-LN (`do_stable_layer_norm`: the large
+presets, encoder LN after the stack). WavLM (`gated_relpos_bias`) adds a
+T5-style bucketed relative position bias, computed once and shared down
+the stack, gated per layer, head and query from the attention's input.
+Padded batches give each clip the result it would get alone, because
+every statistic is taken over valid samples only or per frame.
 In training (deterministic=False) SpecAugment's time masks and the
 dropout sites of the JAX package apply, drawn from a torch.Generator.
 
@@ -25,21 +33,27 @@ import torch.nn.functional as F
 
 from ..config import Wav2Vec2Config
 from ..ops import conv_tail
+from ..utils.runtime import export_safe_cache
 from . import layers, remat as remat_lib
 
 Tensor = torch.Tensor
 
 
+FEAT_EXTRACT_NORMS = ("group", "layer")
+
+
 def check_supported(cfg: Wav2Vec2Config) -> None:
-    if (cfg.do_stable_layer_norm or cfg.feat_extract_norm != "group"
-            or cfg.gated_relpos_bias):
+    if cfg.feat_extract_norm not in FEAT_EXTRACT_NORMS:
         raise NotImplementedError(
-            "only the wav2vec2-base preset is ported (post-LN, group-norm "
-            "conv, no relative position bias); the large presets are "
-            "ROADMAP Queue A item 12")
+            f"feat_extract_norm={cfg.feat_extract_norm!r}: the extractor takes "
+            f"{' or '.join(map(repr, FEAT_EXTRACT_NORMS))}, as the JAX package's does")
 
 
 def init_wav2vec2(init: layers.Init, cfg: Wav2Vec2Config) -> dict:
+    """The JAX package's tree and init distributions: per-conv `bias` and
+    `ln` where the config has them, `group_norm` in group mode only, and
+    WavLM's per-layer `gru_lin` [L, Dh, 8] / `gru_const` [L, H] and
+    `rel_attn_embed` [num_buckets, H]."""
     check_supported(cfg)
     convs = []
     in_c = 1
@@ -47,29 +61,40 @@ def init_wav2vec2(init: layers.Init, cfg: Wav2Vec2Config) -> dict:
         conv = {"kernel": init.normal((out_c, in_c, k), math.sqrt(2.0 / (in_c * k)))}
         if cfg.conv_bias:
             conv["bias"] = init.zeros((out_c,))
+        if cfg.feat_extract_norm == "layer":
+            conv["ln"] = layers.init_layer_norm(init, out_c)
         convs.append(conv)
         in_c = out_c
     h, g, kk = cfg.hidden_size, cfg.num_conv_pos_embedding_groups, cfg.num_conv_pos_embeddings
+    H = cfg.num_attention_heads
     L = (cfg.num_hidden_layers,)
     lin = lambda i, o: layers.init_normal_linear(init, i, o, 0.02, stack=L)
-    return {
+    stacked = {
+        "q": lin(h, h), "k": lin(h, h), "v": lin(h, h), "out": lin(h, h),
+        "attn_ln": layers.init_layer_norm(init, h, stack=L),
+        "ffn_in": lin(h, cfg.intermediate_size),
+        "ffn_out": lin(cfg.intermediate_size, h),
+        "final_ln": layers.init_layer_norm(init, h, stack=L),
+    }
+    if cfg.gated_relpos_bias:
+        stacked["gru_lin"] = lin(h // H, 8)
+        stacked["gru_const"] = init.ones((*L, H))
+    params = {
         "convs": convs,
         "feat_proj": {"ln": layers.init_layer_norm(init, cfg.conv_dim[-1]),
                       "proj": layers.init_linear(init, cfg.conv_dim[-1], h)},
         "pos_conv": {"kernel": init.normal((h, h // g, kk), math.sqrt(4.0 / (kk * h))),
                      "bias": init.zeros((h,))},
         "encoder_ln": layers.init_layer_norm(init, h),
-        "layers": {
-            "q": lin(h, h), "k": lin(h, h), "v": lin(h, h), "out": lin(h, h),
-            "attn_ln": layers.init_layer_norm(init, h, stack=L),
-            "ffn_in": lin(h, cfg.intermediate_size),
-            "ffn_out": lin(cfg.intermediate_size, h),
-            "final_ln": layers.init_layer_norm(init, h, stack=L),
-        },
+        "layers": stacked,
         "masked_spec_embed": init.uniform((h,), 1.0).abs(),  # U[0, 1)
-        "group_norm": {"scale": init.ones((cfg.conv_dim[0],)),
-                       "bias": init.zeros((cfg.conv_dim[0],))},
     }
+    if cfg.feat_extract_norm == "group":
+        params["group_norm"] = {"scale": init.ones((cfg.conv_dim[0],)),
+                                "bias": init.zeros((cfg.conv_dim[0],))}
+    if cfg.gated_relpos_bias:
+        params["rel_attn_embed"] = init.normal((cfg.num_buckets, H), 0.02)
+    return params
 
 
 def normalize_waveform(wave: Tensor, mask: Tensor, eps: float = 1e-7) -> Tensor:
@@ -115,32 +140,56 @@ def masked_group_norm_per_channel(p: dict, x: Tensor, frame_mask: Tensor,
     return y.to(x.dtype)
 
 
+def channel_layer_norm(p: dict, x: Tensor, eps: float) -> Tensor:
+    """`layers.layer_norm` over the channels of each frame of a
+    channels-first x [B, C, T] (HF Wav2Vec2LayerNormConvLayer): f32
+    moments, returns x.dtype."""
+    xf = x.float()
+    mean = xf.mean(1, keepdim=True)
+    var = (xf - mean).square().mean(1, keepdim=True)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    y = y * p["scale"].float()[:, None] + p["bias"].float()[:, None]
+    return y.to(x.dtype)
+
+
 def feature_encoder(params: dict, cfg: Wav2Vec2Config, wave: Tensor,
                     sample_mask: Tensor, *,
                     allow_fused: bool = False) -> Tuple[Tensor, Tensor]:
     """Strided conv stack: [B, T] -> ([B, T7, C], frame_mask [B, T7]).
 
-    `allow_fused=True` runs conv layers 1-6 through the fused tail
-    (ops/conv_tail.conv_tail) when the input is bf16 and the stack has the
-    tail's geometry (`conv_tail_supported`); otherwise, and by default, the
-    layers run one by one. Conv 0 and its masked group norm run either
-    way; its output is transposed once to the tail's [B, T1, C]."""
+    Each conv adds its bias where it has one; in layer mode a per-frame
+    channel LayerNorm follows every conv, in group mode a masked group norm
+    follows conv 0 only; then GELU. `allow_fused=True` runs conv layers 1-6
+    through the fused tail (ops/conv_tail.conv_tail, with the per-layer LN
+    in layer mode) when the input is bf16 and the stack has the tail's
+    geometry (`conv_tail_supported`); otherwise, and by default, the layers
+    run one by one. Conv 0 and its norm run either way; its output is
+    transposed once to the tail's [B, T1, C]."""
+    check_supported(cfg)
     convs = params["convs"]
+    layer_mode = cfg.feat_extract_norm == "layer"
+    eps = cfg.layer_norm_eps
+
+    def norm_gelu(conv: dict, x: Tensor) -> Tensor:
+        return layers.gelu(channel_layer_norm(conv["ln"], x, eps) if layer_mode else x)
+
     use_fused = (allow_fused and wave.dtype == torch.bfloat16
                  and conv_tail.conv_tail_supported(cfg.conv_kernel, cfg.conv_stride,
                                                    cfg.conv_dim))
     x = _conv1d(convs[0], wave[:, None, :], cfg.conv_stride[0])
     lengths = sample_mask.to(torch.int32).sum(-1)
     lengths = (lengths - cfg.conv_kernel[0]) // cfg.conv_stride[0] + 1
-    fm = torch.arange(x.shape[-1], device=x.device)[None, :] < lengths[:, None]
-    x = layers.gelu(masked_group_norm_per_channel(params["group_norm"], x, fm))
+    if layer_mode:
+        x = norm_gelu(convs[0], x)
+    else:
+        fm = torch.arange(x.shape[-1], device=x.device)[None, :] < lengths[:, None]
+        x = layers.gelu(masked_group_norm_per_channel(params["group_norm"], x, fm))
     if use_fused:
-        # the port's extractor is the group-norm one: no per-layer LN
-        x = conv_tail.conv_tail(convs, x.transpose(1, 2).contiguous(), has_ln=False,
-                                ln_eps=cfg.layer_norm_eps)
+        x = conv_tail.conv_tail(convs, x.transpose(1, 2).contiguous(), has_ln=layer_mode,
+                                ln_eps=eps)
     else:
         for conv, stride in zip(convs[1:], cfg.conv_stride[1:]):
-            x = layers.gelu(_conv1d(conv, x, stride))
+            x = norm_gelu(conv, _conv1d(conv, x, stride))
         x = x.transpose(1, 2)
     for kernel, stride in zip(cfg.conv_kernel[1:], cfg.conv_stride[1:]):
         lengths = (lengths - kernel) // stride + 1
@@ -165,12 +214,65 @@ def _spec_augment(generator: torch.Generator, cfg: Wav2Vec2Config, hidden: Tenso
     return torch.where(masked[..., None] > 0, masked_embed.to(hidden.dtype), hidden)
 
 
+def _relative_positions_bucket(rel: Tensor, num_buckets: int, max_distance: int) -> Tensor:
+    """HF WavLMAttention._relative_positions_bucket as the JAX package
+    computes it (T5-style, bidirectional): half the buckets for the sign,
+    half of those exact, the rest log-spaced; the log in f32, truncated to
+    an integer before max_exact is added."""
+    nb = num_buckets // 2
+    out = (rel > 0).to(torch.int64) * nb
+    rel = rel.abs()
+    max_exact = nb // 2
+    large = max_exact + (torch.log(rel.clamp(min=1).float() / max_exact)
+                         / math.log(max_distance / max_exact) * (nb - max_exact)
+                         ).to(torch.int64)
+    return out + torch.where(rel < max_exact, rel, large.clamp(max=nb - 1))
+
+
+@export_safe_cache(maxsize=16)
+def _bucket_table(T: int, num_buckets: int, max_distance: int) -> Tensor:
+    """Bucket [T, T] of key j for query i (rel = j - i), always computed on
+    the CPU, so that every device indexes the same buckets (a device's own
+    f32 log may round the other way at a bucket edge)."""
+    pos = torch.arange(T)
+    return _relative_positions_bucket(pos[None, :] - pos[:, None], num_buckets, max_distance)
+
+
+def relative_position_bias(params: dict, cfg: Wav2Vec2Config, T: int) -> Tensor:
+    """Ungated bias [H, T, T] in f32 (HF WavLMAttention.compute_bias), from
+    `rel_attn_embed`, computed once and shared down the stack."""
+    embed = params["rel_attn_embed"]
+    bucket = _bucket_table(T, cfg.num_buckets, cfg.max_bucket_distance).to(embed.device)
+    return embed.float()[bucket].permute(2, 0, 1)
+
+
+def _gated_bias(pos_bias: Tensor, num_heads: int):
+    """logit_bias(layer, x) of `layers.encoder_stack`: WavLM's gate, from
+    the attention's input x [B, S, E] (after the LN in stable-LN mode), per
+    (batch, head, query): sigmoid of gru_lin's two sums of 4, then
+    ga * (gb * gru_const - 1) + 2, [B, H, S, 1], times the bias, in f32."""
+    def bias(layer: dict, x: Tensor) -> Tensor:
+        B, S, E = x.shape
+        proj = layers.linear(layer["gru_lin"], x.reshape(B, S, num_heads, E // num_heads))
+        gates = torch.sigmoid(proj.reshape(B, S, num_heads, 2, 4).sum(-1).float())
+        ga, gb = gates[..., :1], gates[..., 1:]
+        const = layer["gru_const"].float()[None, None, :, None]
+        gate = (ga * (gb * const - 1.0) + 2.0).permute(0, 2, 1, 3)
+        return gate * pos_bias[None]
+    return bias
+
+
 def _encoder_stack(stacked: dict, cfg: Wav2Vec2Config, h: Tensor, attn_bias: Tensor, *,
                    generator: Optional[torch.Generator] = None, deterministic: bool = True,
-                   remat: remat_lib.RematSpec = False) -> Tensor:
-    """The post-LN layers; attn_bias: additive f32 [B, 1, 1, S]."""
-    return layers.post_ln_encoder_stack(
+                   remat: remat_lib.RematSpec = False,
+                   pos_bias: Optional[Tensor] = None) -> Tensor:
+    """The transformer layers (post-LN, or pre-LN with do_stable_layer_norm);
+    attn_bias: additive f32 [B, 1, 1, S]; pos_bias: WavLM's [H, S, S]."""
+    return layers.encoder_stack(
         stacked, h, attn_bias, num_heads=cfg.num_attention_heads, eps=cfg.layer_norm_eps,
+        pre_ln=cfg.do_stable_layer_norm,
+        logit_bias=None if pos_bias is None else _gated_bias(pos_bias,
+                                                             cfg.num_attention_heads),
         attention_dropout=cfg.attention_dropout, hidden_dropout=cfg.hidden_dropout,
         activation_dropout=cfg.activation_dropout, generator=generator,
         deterministic=deterministic, remat=remat)
@@ -186,7 +288,6 @@ def wav2vec2_encode(params: dict, cfg: Wav2Vec2Config, wave: Tensor,
     [B, T] (1 valid). Returns (hidden [B, T', H], frame_mask [B, T']).
     Training draws SpecAugment (where `spec_augment` and the config ask
     for it) and dropout from `generator`."""
-    check_supported(cfg)
     if normalize:
         wave = normalize_waveform(wave, sample_mask).to(wave.dtype)
     # the unfused extractor, as the JAX package's wav2vec2_encode runs it
@@ -201,8 +302,16 @@ def wav2vec2_encode(params: dict, cfg: Wav2Vec2Config, wave: Tensor,
                   padding=cfg.num_conv_pos_embeddings // 2)
     # an even kernel with padding k//2 gives T+1 frames: keep the first T
     pos = layers.gelu(pos[:, :, : h.shape[1]].transpose(1, 2))
-    h = layers.layer_norm(params["encoder_ln"], h + pos, eps=cfg.layer_norm_eps)
+    h = h + pos
+    if not cfg.do_stable_layer_norm:
+        # the post-LN encoder normalises before the stack, the stable-LN one after
+        h = layers.layer_norm(params["encoder_ln"], h, eps=cfg.layer_norm_eps)
     h = layers.dropout(generator, h, cfg.hidden_dropout, deterministic)
+    pos_bias = (relative_position_bias(params, cfg, h.shape[1])
+                if cfg.gated_relpos_bias else None)
     h = _encoder_stack(params["layers"], cfg, h, layers.key_mask_bias(frame_mask),
-                       generator=generator, deterministic=deterministic, remat=remat)
+                       generator=generator, deterministic=deterministic, remat=remat,
+                       pos_bias=pos_bias)
+    if cfg.do_stable_layer_norm:
+        h = layers.layer_norm(params["encoder_ln"], h, eps=cfg.layer_norm_eps)
     return h, frame_mask

@@ -58,7 +58,7 @@ def xlmr_encode(params: dict, cfg: XLMRConfig, input_ids: Tensor,
     h = emb["word"][ids] + emb["position"][pos_ids] + emb["token_type"][0][None, None, :]
     h = layers.layer_norm(emb["ln"], h, eps=cfg.layer_norm_eps)
     h = layers.dropout(generator, h, cfg.hidden_dropout, deterministic)
-    return layers.post_ln_encoder_stack(
+    return layers.encoder_stack(
         params["layers"], h, layers.key_mask_bias(attention_mask),
         num_heads=cfg.num_attention_heads, eps=cfg.layer_norm_eps,
         attention_dropout=cfg.attention_dropout, hidden_dropout=cfg.hidden_dropout,

@@ -3,11 +3,16 @@
 
 Replaces the TPU kernel `attentive_stats_pooling_pallas`
 (multilingual_multimodal_speech_emotion_recognition_tpu/ops/pallas_kernels.py:208,
-body `_pool_kernel` :161). It is the one-pass arithmetic of that kernel,
-not the model's two-pass `ops/pooling.attentive_stats_pooling`: masked
-frames get a score of -1e30 (not -inf) and are also multiplied out of the
-weights, the normaliser is clamped at 1e-30, and the std is
-sqrt(max(E[x^2] - mean^2, 0) + 1e-6). The arithmetic is f32, except that
+body `_pool_kernel` :161), with that kernel's masking, not the model's
+`ops/pooling.attentive_stats_pooling`'s: masked frames get a score of
+-1e30 (not -inf) and are also multiplied out of the weights, the
+normaliser is clamped at 1e-30, and std = sqrt(var + 1e-6). The TPU kernel
+takes var = E[x^2] - mean^2; where a row's weight sits on one frame that
+difference is a few f32 ulps of x^2 and moves std by up to 4e-4 through
+the square root at its 1e-6 floor. So the plain version takes the
+variance about the mean (two passes) and the f32 route a running mean and
+sum of squared deviations; the bf16 route, whose bf16 output rounds far
+more than that, keeps E[x^2] - mean^2. The arithmetic is f32, except that
 the bf16 route multiplies bf16 x by bf16 W1 (exact products, f32 sums) and
 takes tanh on the special-function unit; the output [B, 2D] is in x.dtype.
 
@@ -66,7 +71,8 @@ MAX_DEPTH = 8              # ring slots
 
 
 def attentive_stats_pooling_plain(params: dict, x: Tensor, mask: Tensor) -> Tensor:
-    """The kernel's arithmetic over the whole sequence at once, in f32."""
+    """The kernels' function over the whole sequence at once, in f32: the
+    mean, then the variance about it."""
     xf = x.float()
     mf = mask.float()
     h = torch.tanh(xf @ params["w1"]["kernel"].float() + params["w1"]["bias"].float())
@@ -75,8 +81,8 @@ def attentive_stats_pooling_plain(params: dict, x: Tensor, mask: Tensor) -> Tens
     e = torch.exp(sc - sc.amax(-1, keepdim=True)) * mf
     l = e.sum(-1, keepdim=True).clamp(min=1e-30)
     mean = torch.einsum("bs,bsd->bd", e, xf) / l
-    ex2 = torch.einsum("bs,bsd->bd", e, xf * xf) / l
-    std = torch.sqrt((ex2 - mean * mean).clamp(min=0.0) + POOL_EPS)
+    var = torch.einsum("bs,bsd->bd", e, (xf - mean[:, None, :]).square()) / l
+    std = torch.sqrt(var.clamp(min=0.0) + POOL_EPS)
     return torch.cat([mean, std], dim=-1).to(x.dtype)
 
 

@@ -9,8 +9,9 @@ checkpoint per epoch named epoch_{e}_f1_{f1:.4f} with the optimizer state
 resume, early stopping, a resumable checkpoint on SIGTERM and the Weibull
 fit on the validation features after the last epoch, into the final and
 the best checkpoint. The JAX package's pod branches (its mesh, the
-multi-host loader and metrics sink) wait for ROADMAP Queue A item 16, and
-its pretrained backbones for `hf_convert` (item 12).
+multi-host loader and metrics sink) wait for ROADMAP Queue A item 16.
+`pretrained` Hugging Face state dicts replace the fresh backbones
+(models/model.py:load_pretrained_backbones).
 
 The validation pass and the Weibull fit's feature pass are the eval
 forward under torch.inference_mode(), so they run the classifier's kernel
@@ -108,13 +109,17 @@ class PreemptionGuard:
 
 def train(cfg: Config, *, train_manifest: str, val_manifest: str,
           tokenizer: Optional[Tokenizer] = None,
+          pretrained: Optional[Dict] = None,
           initial_params: Optional[dict] = None,
           log_path: Optional[str] = None, progress: bool = True,
           guard: Optional[PreemptionGuard] = None, device: Device = None) -> Dict:
     """Train by cfg.train; returns {"params", "opt_state", "history",
     "best_f1", "final_f1", "preempted"} (and "checkpoint" when preempted).
     The card unless `device` says otherwise. `initial_params` (e.g. phase
-    1's) is copied to the device; the run updates its own copy."""
+    1's) is copied to the device; the run updates its own copy. Otherwise
+    the parameters are drawn from tcfg.seed, with the backbones of
+    `pretrained` ({"wav2vec2_state": ..., "xlmr_state": ...}, Hugging Face
+    state dicts) in place of fresh ones."""
     tcfg = cfg.train
     dev = resolve_device(device)
     tok = tokenizer or get_tokenizer(vocab_size=cfg.model.text.vocab_size)
@@ -132,6 +137,8 @@ def train(cfg: Config, *, train_manifest: str, val_manifest: str,
     else:
         params = mdl.init_model(cfg.model, torch.Generator(device=dev).manual_seed(tcfg.seed),
                                 device=dev)
+        if pretrained:
+            params = mdl.load_pretrained_backbones(params, **pretrained)
 
     steps_per_epoch = max(1, train_loader.batches_per_epoch())
     optimizer = opt_lib.make_train_optimizer(
@@ -288,10 +295,12 @@ def train_two_phase(cfg: Config, *, train_manifest: str, val_manifest: str,
                     phase1_epochs: int = 3, phase2_epochs: int = 2,
                     phase1_lr: float = 5e-4, phase2_lr: float = 1e-5,
                     tokenizer: Optional[Tokenizer] = None,
+                    pretrained: Optional[Dict] = None,
                     progress: bool = True, device: Device = None) -> Dict:
     """Phase 1 trains the heads with frozen backbones at phase1_lr; phase 2
     unfreezes the backbones and fine-tunes everything at phase2_lr (the
-    intent of the reference's train_two_phase.py). Each phase writes its
+    intent of the reference's train_two_phase.py). Phase 1 starts from the
+    `pretrained` backbones where given. Each phase writes its
     checkpoints under save_dir/phase{1,2}; phase 2 starts from a copy of
     phase 1's parameters, with grad_accum raised by phase2_grad_accum."""
     base = Path(cfg.train.save_dir)
@@ -299,7 +308,7 @@ def train_two_phase(cfg: Config, *, train_manifest: str, val_manifest: str,
         cfg.train, epochs=phase1_epochs, lr=phase1_lr, freeze_backbones=True,
         save_dir=str(base / "phase1")))
     r1 = train(cfg1, train_manifest=train_manifest, val_manifest=val_manifest,
-               tokenizer=tokenizer, progress=progress, device=device)
+               tokenizer=tokenizer, pretrained=pretrained, progress=progress, device=device)
     cfg2 = dataclasses.replace(cfg, train=dataclasses.replace(
         cfg.train, epochs=phase2_epochs, lr=phase2_lr, freeze_backbones=False,
         save_dir=str(base / "phase2"),

@@ -4,8 +4,11 @@ into the port's nested dict of tensors.
 Layout convention: every leaf keeps its key path and its layout, with one
 exception. Linear kernels stay [in, out] (y = x @ W + b), stacked layer
 parameters stay stacked [L, ...] (the residual-stack kernel reads its
-[L, D, D] weights as they are), LayerNorm scale/bias, embeddings, anchors,
-Weibull state and scalars are copied as they are. Conv kernels, the
+[L, D, D] weights as they are), LayerNorm scale/bias (the large presets'
+per-conv `ln` among them), conv biases, embeddings, WavLM's gate
+(`gru_lin` [L, Dh, 8], `gru_const` [L, H]) and bias table
+(`rel_attn_embed` [buckets, H]), anchors, Weibull state and scalars are
+copied as they are. Conv kernels, the
 feature-extractor convs (`audio_backbone/convs/<i>/kernel`) and the
 positional conv (`audio_backbone/pos_conv/kernel`), go from JAX's WIO
 [K, C_in/groups, C_out] to torch's [C_out, C_in/groups, K].

@@ -153,6 +153,27 @@ def test_conv_tail_bf16_wgmma_edges(cuda, B, C, has_ln):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("bias", [True, False], ids=["wav2vec2-large", "wavlm-large"])
+def test_conv_tail_ln_route_at_the_large_geometry(cuda, bias):
+    """The layer-norm route of the large presets' extractor (wav2vec2-large
+    and HuBERT-Large with conv biases, WavLM-Large without) at 4 s clips,
+    [4, 12799, 512] bf16, against its plain version."""
+    convs, _ = _tail_convs(cuda, 512, has_ln=True, seed=11 + bias)
+    convs = [{k: (v.bfloat16() if k != "ln" else v) for k, v in c.items()
+              if bias or k != "bias"} for c in convs]
+    g = torch.Generator(device=cuda).manual_seed(12)
+    x1 = torch.nn.functional.gelu(torch.randn(4, 12799, 512, device=cuda, generator=g)).bfloat16()
+    before = ct.conv_tail.launches
+    got = ct.conv_tail(convs, x1, has_ln=True)
+    want = ct.conv_tail_plain(convs, x1, has_ln=True)
+    torch.cuda.synchronize()
+    assert ct.conv_tail.launches == before + 1
+    assert tuple(got.shape) == (4, 199, 512)
+    tol = BF16_TOL["conv_tail"]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
 def test_conv_tail_kernel_rejects_what_it_does_not_take(cuda):
     convs, x1 = _tail_convs(cuda, 128, has_ln=False, seed=0)
     with pytest.raises(ValueError, match="bf16 or f32"):
@@ -240,8 +261,11 @@ def _pool_params(device, D, H, dtype, seed):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("S,D,H", [(199, 768, 128), (32, 768, 128), (45, 64, 32), (7, 1536, 256)])
 def test_attentive_pooling_kernel_matches_plain(cuda, dtype, S, D, H):
+    """x from a seeded generator, so that a failing draw replays
+    (scripts/torch_pool_f32_seeds.py runs the f32 case over many draws)."""
     params = _pool_params(cuda, D, H, dtype, seed=S)
-    x = torch.randn(5, S, D, device=cuda).to(dtype)
+    g = torch.Generator(device=cuda).manual_seed(100 + S)
+    x = torch.randn(5, S, D, device=cuda, generator=g).to(dtype)
     mask = torch.ones(5, S, device=cuda)
     mask[1, S // 3:] = 0
     mask[3] = 0                                    # a row with no valid frame
@@ -252,6 +276,25 @@ def test_attentive_pooling_kernel_matches_plain(cuda, dtype, S, D, H):
     assert ap.attentive_stats_pooling.launches == before + 1
     tol = TOL if dtype == torch.float32 else BF16_TOL["attention"]
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_attentive_pooling_f32_route_over_seeded_draws(cuda):
+    """The f32 route at the 2-valid-frame case over 64 seeded draws, each
+    within 1e-4 of the plain version: rows whose weight sits on one frame,
+    where E[x^2] - mean^2 loses a few ulps of x^2, are among them
+    (scripts/torch_pool_f32_seeds.py runs 256)."""
+    S, D, H = 7, 1536, 256
+    params = _pool_params(cuda, D, H, torch.float32, seed=S)
+    mask = torch.ones(5, S, device=cuda)
+    mask[1, S // 3:] = 0
+    mask[3] = 0
+    for seed in range(64):
+        g = torch.Generator(device=cuda).manual_seed(seed)
+        x = torch.randn(5, S, D, device=cuda, generator=g)
+        got = ap.attentive_stats_pooling(params, x, mask)
+        want = ap.attentive_stats_pooling_plain(params, x, mask)
+        torch.testing.assert_close(got, want, rtol=TOL, atol=TOL, msg=lambda m: f"{seed}: {m}")
 
 
 @pytest.mark.cuda
@@ -447,6 +490,58 @@ def _tiny_eval_config():
         text=tcfg.XLMRConfig(vocab_size=100, hidden_size=16, num_hidden_layers=2,
                              num_attention_heads=4, intermediate_size=32,
                              max_position_embeddings=40)))
+
+
+def _tiny_large(preset, compute_dtype="float32"):
+    """A large preset's flags at tiny widths (3 convs of 16 channels, hidden
+    32, 2 layers; WavLM's buckets 16 / 40), and 3 padded 0.1 s rows with
+    precomputed front-end features."""
+    import dataclasses
+
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch import config as tcfg
+    audio = dataclasses.replace(
+        tcfg.AUDIO_BACKBONE_PRESETS[preset](), conv_dim=(16, 16, 16), conv_stride=(5, 2, 2),
+        conv_kernel=(10, 3, 3), hidden_size=32, num_hidden_layers=2, num_attention_heads=4,
+        intermediate_size=64, num_conv_pos_embeddings=16, num_conv_pos_embedding_groups=4,
+        num_buckets=16, max_bucket_distance=40)
+    cfg = dataclasses.replace(_tiny_eval_config().model, audio=audio,
+                              compute_dtype=compute_dtype, frontend_dsp=False)
+    rng = np.random.default_rng(1)
+    mask = np.ones((3, 1600), np.float32)
+    mask[1, 1100:] = 0
+    mask[2, 700:] = 0
+    batch = {"audio": rng.standard_normal((3, 1600)).astype(np.float32) * mask,
+             "audio_mask": mask,
+             "text_ids": rng.integers(2, 100, (3, 10)).astype(np.int32),
+             "text_mask": np.ones((3, 10), np.float32),
+             "quality_feats": rng.standard_normal((3, 8)).astype(np.float32),
+             "cond_feats": rng.standard_normal((3, 12)).astype(np.float32)}
+    return cfg, batch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [("float32", TOL), ("bfloat16", 3e-2)])
+@pytest.mark.parametrize("preset", ["wav2vec2-large", "wavlm-large"])
+def test_large_preset_forward_on_the_card_matches_the_cpu(cuda, preset, dtype, tol):
+    """A large preset's flags (layer-norm convs, stable pre-LN, WavLM's
+    gated bias) at tiny widths: model_forward on the card against the CPU
+    on padded rows, one A1 launch. cuDNN's convolutions run without TF32,
+    as chip_smoke.py's card-against-CPU phases run them."""
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.models import (
+        model as tm)
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.utils.runtime import (
+        tree_to)
+    cfg, batch = _tiny_large(preset, dtype)
+    params = tm.init_model(cfg, torch.Generator().manual_seed(2), "cpu")
+    want = tm.model_forward(params, cfg, batch)
+    before = rs.residual_stack.launches
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        got = tm.model_forward(tree_to(params, cuda), cfg, batch)
+        torch.cuda.synchronize()
+    assert rs.residual_stack.launches == before + 1
+    for field, g, w in zip(want._fields, got, want):
+        torch.testing.assert_close(g.float().cpu(), w.float(), rtol=tol, atol=tol,
+                                   msg=lambda m: f"{field}: {m}")
 
 
 @pytest.mark.cuda
@@ -718,6 +813,30 @@ def test_exported_program_on_the_card_launches_a1_and_matches_eager(cuda, tmp_pa
                                    err_msg=name)
     with pytest.raises(ValueError, match="traced for"):
         ex.ServingModel(art, device="cpu")
+
+
+@pytest.mark.cuda
+def test_exported_wavlm_large_on_the_card_matches_eager(cuda, tmp_path):
+    """The stable pre-LN layers and WavLM's gated bias (its CPU bucket table
+    copied to the card inside the program) exported on the card: a predict
+    launches A1 once and equals the eager forward."""
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch import export as ex
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.models import (
+        model as tm)
+    cfg, batch = _tiny_large("wavlm-large")
+    params = tm.init_model(cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    art = ex.export_forward(params, cfg, tmp_path / "art", batch_size=3, audio_seconds=0.1,
+                            text_tokens=10, with_dsp=False, device=cuda)
+    before = rs.residual_stack.launches
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        got = ex.ServingModel(art, device=cuda).predict(batch)
+        assert rs.residual_stack.launches == before + 1
+        with torch.inference_mode():
+            want = tm.model_forward(params, cfg, batch, use_openmax=True)
+    for name, w in (("logits", want.logits), ("uncertainty", want.uncertainty),
+                    ("features", want.features)):
+        np.testing.assert_allclose(got[name], w.float().cpu().numpy(), rtol=TOL, atol=TOL,
+                                   err_msg=name)
 
 
 @pytest.mark.cuda

@@ -84,13 +84,16 @@ def test_wav2vec2_pieces():
 
 
 def test_wav2vec2_unported_paths_raise():
+    """Only an extractor norm the JAX package lacks too is refused; the
+    large presets' layer-norm stack runs (tests/test_torch_large_backbones.py)."""
     jc, tc = _configs()
     tp = tw.init_wav2vec2(tw.layers.Init(None, "cpu"), tc.audio)
     wave, mask = _audio()
-    large = dataclasses.replace(tc.audio, do_stable_layer_norm=True,
-                                feat_extract_norm="layer")
-    with pytest.raises(NotImplementedError, match="Queue A item 12"):
-        tw.wav2vec2_encode(tp, large, t(wave), t(mask))
+    unknown = dataclasses.replace(tc.audio, feat_extract_norm="instance")
+    with pytest.raises(NotImplementedError, match="feat_extract_norm='instance'"):
+        tw.wav2vec2_encode(tp, unknown, t(wave), t(mask))
+    with pytest.raises(NotImplementedError, match="feat_extract_norm='instance'"):
+        tw.init_wav2vec2(tw.layers.Init(None, "meta"), unknown)
 
 
 def test_position_ids_from_input_ids():

@@ -40,5 +40,7 @@ def test_port_imports_without_jax():
                    "cli.eval", "models.remat", "models.prototypes", "ops.losses",
                    "train.optimizer", "train.train_step", "train.loop", "cli.train",
                    "export", "serving", "interface", "integration", "research.temporal",
-                   "research.dual_gate_ood", "cli.export", "cli.serve", "cli.infer"):
+                   "research.dual_gate_ood", "cli.export", "cli.serve", "cli.infer",
+                   "models.hf_convert", "models.ref_convert", "cli.import_checkpoint",
+                   "cli.export_torch", "cli.make_manifest"):
         assert port + module in report["imported"]

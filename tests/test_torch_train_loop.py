@@ -292,8 +292,8 @@ def test_cli_builds_the_jax_cli_config(preset, clips, monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("flag,item", [
     (["--fsdp"], "item 16"), (["--mesh_model", "2"], "item 16"),
-    (["--num_processes", "2"], "item 16"), (["--xlmr_checkpoint", "x"], "item 12"),
-    (["--audio_backbone", "wavlm-large"], "item 12"), (["--use_asr"], "item 14")])
+    (["--num_processes", "2"], "item 16"), (["--mesh_dcn", "2"], "item 16"),
+    (["--coordinator_address", "localhost:1"], "item 16"), (["--use_asr"], "item 14")])
 def test_cli_flags_of_unported_modules_exit_with_their_roadmap_item(flag, item):
     with pytest.raises(SystemExit, match=item):
         tcli.main(flag + ["--device", "cpu"])
