@@ -113,6 +113,37 @@ Phases, one JSON line each:
                 heads) and the same tree exactly, the logits equal the
                 source's, and its eval CLI scores phase 5d's manifest with
                 the import; the files are removed
+  9. int8/asr int8 serving and Whisper ASR, through the entry points a user
+              calls, on phase 5d's checkpoint and manifest:
+              - the int8 product (`torch._int_mm`, rows under 17 padded)
+                against the plain int32 matmul on the CPU, bitwise, at the
+                flagship's [4*199, 768] x [768, 3072] and [128*199, 768] x
+                [768, 768]; `linear_int8` card against CPU; times beside the
+                bf16 product;
+              - the flagship cut to 2 layers at full width with
+                `quantize_backbones`, card against CPU from the same
+                parameters (AGREE_TOL bf16: the int8 products exact on both
+                sides); then the flagship eval forward with
+                `quantize_backbones` beside the bf16 one, B=4 and B=128, the DSP on worst-case audio: ms,
+                utt/s, peak memory, the backbones' layer bytes, int8 against
+                bf16 logits (mean |d| / mean |logit| < 0.25, the JAX
+                package's criterion), one A1 launch and one int8 product a
+                quantised linear per forward;
+              - the export CLI --int8 (one bucket, features precomputed), the
+                program against the eager int8 forward (AGREE_TOL), the
+                artifact's bytes; the eval CLI --int8 on the manifest, the
+                infer CLI --int8 on a clip;
+              - whisper-base (d 512, 6 + 6 layers, vocab 51865) card against
+                CPU at 2 layers in f32 (tokens equal), then full depth in bf16
+                at B=1, 8, 32 on 10 s clips in the 30 s window, 48 new
+                tokens: log-mel, encode and decode ms, tokens/s, peak memory;
+              - whisper-large-v3's geometry (d 1280, 32 + 32 layers, 128 mels)
+                in bf16 and with `quantize_whisper`, B=1 and 8: the same, with
+                the weights' bytes;
+              - `EnhancedASRIntegration` over `TorchWhisperASR` (whisper-base,
+                bf16, on the card) on a clip without text, its 8 features
+                through `model_forward` with `use_asr`, then the eval CLI
+                --use_asr on the manifest
 Then the script's wall time, the `kernels` line and, last,
 {"ok": true, "device": {...}}.
 
@@ -137,6 +168,7 @@ import numpy as np
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12       # f32 outside the tensor cores
 H100_BF16_FLOPS = 989e12     # bf16 tensor cores, dense
+H100_INT8_OPS = 1979e12      # int8 tensor cores, dense
 KERNEL_TOL = 1e-4            # kernel vs plain in f32: summation order
 BF16_TOL = {"conv_tail": 4e-2,   # the JAX package's bound for the fused tail
             "attention": 3e-2}   # and for bf16 pooling: one output rounding
@@ -180,10 +212,31 @@ LONG_CLIP_SECONDS = 12.0
 STREAM_CHUNK_SECONDS = 0.5
 WIRE_TOL = 1e-5      # int16 wire vs f32 wire on PCM: the same values reach the same ops
 LARGE_PRESETS = ("wav2vec2-large", "wavlm-large")   # hubert-large has wav2vec2-large's config
+AGREE_B = 4                      # rows of agree_rows
 LARGE_AGREE_LAYERS = 2           # 8a: both encoders cut to 2 layers, full width
 LARGE_BATCHES = ((4, REQUESTS_B4), (32, REQUESTS_B128))   # 32: scripts/tpu_large_backbones.py
 LARGE_TAIL_B = 32                # 8c: A4's layer-norm route as a kernel
 LARGE_TRAIN_STEPS = 3
+WHISPER_PRESETS = {   # whisper-base: the reference's default; large-v3: scripts/tpu_asr_smoke.py
+    "whisper-base": dict(vocab_size=51865, num_mel_bins=80, d_model=512, encoder_layers=6,
+                         encoder_attention_heads=8, decoder_layers=6,
+                         decoder_attention_heads=8, encoder_ffn_dim=2048,
+                         decoder_ffn_dim=2048),
+    "whisper-large-v3": dict(vocab_size=51866, num_mel_bins=128, d_model=1280,
+                             encoder_layers=32, encoder_attention_heads=20,
+                             decoder_layers=32, decoder_attention_heads=20,
+                             encoder_ffn_dim=5120, decoder_ffn_dim=5120),
+}
+INT8_SHAPES = ((4 * 199, 768, 3072), (128 * 199, 768, 768))   # (rows, I, O) of 9a
+INT8_AGREE_LAYERS = 2     # 9b's card-against-CPU check
+INT8_CRITERION = 0.25     # mean |int8 - float| / mean |float| (tests/test_quant.py)
+INT8_BATCHES = ((4, REQUESTS_B4), (128, REQUESTS_B128))   # 9b's forwards
+INT8_BUCKET = "4:8"       # 9c's one exported bucket
+ASR_NEW_TOKENS = 48       # TorchWhisperASR's default, as JaxWhisperASR's
+ASR_CLIP_SECONDS = 10.0   # padded to Whisper's 30 s window
+ASR_BATCHES = {"whisper-base": (1, 8, 32), "whisper-large-v3": (1, 8)}
+ASR_AGREE_LAYERS = 2      # 9d's card-against-CPU check
+ASR_EMBED_SCALE = 10.0    # spreads a random model's logits, so argmax ties cannot decide 9d
 SOURCE = "multilingual_multimodal_speech_emotion_recognition_tpu_torch/csrc/{}.cu"
 REPLACES = "multilingual_multimodal_speech_emotion_recognition_tpu/ops/pallas_kernels.py:{}"
 
@@ -482,6 +535,21 @@ def card_against_cpu(torch, mdl, cfg, batch: dict, tol: float, cpu_params=None) 
                                  f"{field}: card vs CPU max diff {diffs[field]} over "
                                  f"tolerance {tol}")
     return diffs
+
+
+def agree_rows(seed: int) -> dict:
+    """AGREE_B 1 s rows (row 1 padded to 0.6 s) with 10 text tokens and
+    precomputed front-end features: the batch of the card-against-CPU
+    checks at full width."""
+    rng = np.random.default_rng(seed)
+    B, T, S = AGREE_B, SAMPLE_RATE, 10
+    mask = np.ones((B, T), np.float32)
+    mask[1, int(0.6 * T):] = 0
+    return {"audio": rng.standard_normal((B, T)).astype(np.float32) * mask,
+            "audio_mask": mask, "text_ids": rng.integers(2, 1000, (B, S)).astype(np.int32),
+            "text_mask": np.ones((B, S), np.float32),
+            "quality_feats": rng.standard_normal((B, 8)).astype(np.float32),
+            "cond_feats": rng.standard_normal((B, 12)).astype(np.float32)}
 
 
 def tta_card_against_cpu(torch, audio: np.ndarray, audio_mask: np.ndarray, ids, text_mask):
@@ -1367,17 +1435,8 @@ def large_backbone_phases(torch, wrappers, smi: str, work: Path, manifest: str) 
     launches = dict.fromkeys(KERNEL_NAMES, 0)
     bf16 = torch.bfloat16
 
-    # 8a. card against CPU at full width, both encoders cut to 2 layers, on
-    # 1 s rows (row 1 padded to 0.6 s) with precomputed front-end features
-    rng = np.random.default_rng(8)
-    B, T, S = 4, SAMPLE_RATE, 10
-    mask = np.ones((B, T), np.float32)
-    mask[1, int(0.6 * T):] = 0
-    rows = {"audio": rng.standard_normal((B, T)).astype(np.float32) * mask,
-            "audio_mask": mask, "text_ids": rng.integers(2, 1000, (B, S)).astype(np.int32),
-            "text_mask": np.ones((B, S), np.float32),
-            "quality_feats": rng.standard_normal((B, 8)).astype(np.float32),
-            "cond_feats": rng.standard_normal((B, 12)).astype(np.float32)}
+    # 8a. card against CPU at full width, both encoders cut to 2 layers
+    rows = agree_rows(seed=8)
     for preset in LARGE_PRESETS:
         cfg = dataclasses.replace(large_config(preset, num_hidden_layers=LARGE_AGREE_LAYERS),
                                   text=XLMRConfig(num_hidden_layers=LARGE_AGREE_LAYERS))
@@ -1386,7 +1445,8 @@ def large_backbone_phases(torch, wrappers, smi: str, work: Path, manifest: str) 
             diffs = card_against_cpu(torch, mdl, dataclasses.replace(cfg, compute_dtype=dtype),
                                      rows, tol, cpu_params=cpu_params)
             emit({"phase": "agree", "preset": preset, "layers": LARGE_AGREE_LAYERS,
-                  "dtype": dtype, "tol": tol, "B": B, "seconds": 1.0, "max_abs_diff": diffs})
+                  "dtype": dtype, "tol": tol, "B": AGREE_B, "seconds": 1.0,
+                  "max_abs_diff": diffs})
         del cpu_params
 
     # 8c's kernel half: A4's layer-norm route at [32, 12799, 512] bf16,
@@ -1632,6 +1692,338 @@ def fused_extractor_path(torch, wrappers, w2v_params: dict, audio_cfg, B: int, c
             "unfused_ms": cuda_ms(lambda: w2v.feature_encoder(w2v_params, audio_cfg, wave, mask),
                                   calls, warmup=1),
             "transpose_ms": cuda_ms(lambda: x0.transpose(1, 2).contiguous(), 10)}
+
+
+def tree_bytes(tree) -> int:
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.utils.runtime import (
+        leaves_with_paths)
+    return sum(leaf.numel() * leaf.element_size() for _, leaf in leaves_with_paths(tree))
+
+
+def int8_asr_phases(torch, wrappers, smi: str, cfg, work: Path, manifest: str) -> int:
+    """Phase 9 (see the module docstring) on phase 5d's checkpoint and
+    manifest (`work/checkpoint`, `cfg`'s model). Returns A1's launches on
+    the paths it drives."""
+    import dataclasses
+
+    import torch.nn.functional as F
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.cli import (
+        eval as eval_cli, export as export_cli, infer as infer_cli)
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.config import (
+        config_from_json)
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.data import (
+        audio_io, tokenizer)
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.export import (
+        OUTPUTS, ServingModel)
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.frontend import asr
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.models import (
+        model as mdl, whisper as tw)
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.ops import quant
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.train import (
+        checkpoint as ckpt)
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.utils.runtime import (
+        leaves_with_paths, tree_to)
+    t_start = time.perf_counter()
+    bf16 = torch.bfloat16
+    a1 = 0
+
+    # 9a. the int8 product: torch._int_mm (rows padded under 17) against
+    # the plain int32 matmul on the CPU, bitwise on the same int8 inputs;
+    # the whole int8 linear (bf16 in and out) card against CPU; times
+    # beside the bf16 product at the same shape
+    g = torch.Generator().manual_seed(9)
+    products = {}
+    for M, I, O in INT8_SHAPES:
+        xq = torch.randint(-127, 128, (M, I), generator=g, dtype=torch.int8)
+        kq = quant.card_layout(torch.randint(-127, 128, (I, O), generator=g, dtype=torch.int8))
+        xq_d, kq_d = xq.cuda(), kq.cuda()
+        if not torch.equal(quant.int8_matmul(xq_d, kq_d).cpu(), quant.int8_matmul_plain(xq, kq)):
+            raise AssertionError(f"int8 product [{M}, {I}] x [{I}, {O}]: the card's int32 "
+                                 "product is not the plain one")
+        p = quant.quantize_linear({"kernel": 0.02 * torch.randn(I, O, generator=g),
+                                   "bias": 0.02 * torch.randn(O, generator=g)})
+        x = torch.randn(M, I, generator=g).to(bf16)
+        p_d, x_d = tree_to(p, "cuda"), x.cuda()
+        lin_err = float((quant.linear_int8(p_d, x_d).cpu().float()
+                         - quant.linear_int8(p, x).float()).abs().max())
+        if lin_err != 0.0:
+            raise AssertionError(f"linear_int8 [{M}, {I}] x [{I}, {O}] bf16: card off the CPU "
+                                 f"by {lin_err}")
+        kb, bias = torch.randn(I, O, device="cuda", dtype=bf16), p_d["bias"].to(bf16)
+        bound_ms, bound_by = bound(M * I + I * O + 4 * M * O, 2 * M * I * O / H100_INT8_OPS)
+        products[f"{M}x{I}x{O}"] = {
+            "rows": M, "I": I, "O": O, "int32_bitwise_equal": True,
+            "linear_int8_max_abs_err": lin_err,
+            "int_mm_ms": cuda_ms(lambda: torch._int_mm(xq_d, kq_d), 20),
+            "bf16_matmul_ms": cuda_ms(lambda: torch.matmul(x_d, kb), 20),
+            "linear_int8_ms": cuda_ms(lambda: quant.linear_int8(p_d, x_d), 20),
+            "linear_bf16_ms": cuda_ms(lambda: torch.matmul(x_d, kb) + bias, 20),
+            "int_mm_bound_ms": bound_ms, "int_mm_bound_by": bound_by}
+    emit({"phase": "library", "name": "int8 product (torch._int_mm, ops/quant.py)",
+          "card": smi, "shapes": products})
+
+    # 9b. first the flagship cut to 2 layers at full width, its backbones
+    # quantised, on the card against the CPU from the same parameters (the
+    # int8 products exact on both sides, bf16 rounding elsewhere)
+    small = dataclasses.replace(
+        cfg, audio=dataclasses.replace(cfg.audio, num_hidden_layers=INT8_AGREE_LAYERS),
+        text=dataclasses.replace(cfg.text, num_hidden_layers=INT8_AGREE_LAYERS))
+    cpu_q = quant.quantize_backbones(mdl.init_model(small, torch.Generator().manual_seed(3),
+                                                    "cpu"))
+    diffs = card_against_cpu(torch, mdl, small, agree_rows(seed=9), AGREE_TOL["bfloat16"],
+                             cpu_params=cpu_q)
+    emit({"phase": "agree", "path": "model_forward, int8 backbones",
+          "layers": INT8_AGREE_LAYERS, "dtype": small.compute_dtype,
+          "tol": AGREE_TOL["bfloat16"], "B": AGREE_B, "seconds": 1.0, "max_abs_diff": diffs})
+    del cpu_q
+
+    # then the flagship eval forward with quantize_backbones beside the bf16
+    # one, the DSP on worst-case audio: one A1 launch and one int8 product
+    # per quantised layer linear a forward
+    params = mdl.init_model(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    qparams = quant.quantize_backbones(params)
+    per_forward = sum(leaf.shape[0] for path, leaf in leaves_with_paths(qparams)
+                      if path.endswith("kernel_q"))
+    layers_bytes = {name: tree_bytes({k: p[k]["layers"] for k in ("audio_backbone",
+                                                                   "text_backbone")})
+                    for name, p in (("float32", params), ("int8", qparams))}
+    for B, requests in INT8_BATCHES:
+        batch = example_batch(B, T=CLIP_SAMPLES, S=TEXT_TOKENS, vocab=cfg.text.vocab_size)
+        del batch["quality_feats"], batch["cond_feats"]
+        batch["audio"] = worst_case_dsp_audio(B, CLIP_SAMPLES, seed=B)
+        batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+        row, logits = {}, {}
+        for name, p in (("bf16", params), ("int8", qparams)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts(wrappers)
+            quant.int8_matmul.launches = 0
+            times = []
+            for _ in range(requests):
+                t0 = time.perf_counter()
+                logits[name] = mdl.model_forward(p, cfg, batch).logits.float().cpu()
+                times.append(time.perf_counter() - t0)
+            count = counts(wrappers)
+            int8_count = quant.int8_matmul.launches
+            if count["residual_stack"] != requests:
+                raise AssertionError(f"{name} forward B={B}: residual_stack launched "
+                                     f"{count['residual_stack']} times in {requests} forwards")
+            if int8_count != (requests * per_forward if name == "int8" else 0):
+                raise AssertionError(f"{name} forward B={B}: {int8_count} int8 products in "
+                                     f"{requests} forwards of {per_forward}")
+            a1 += requests
+            warm = sorted(times[1:])
+            ms = 1e3 * warm[len(warm) // 2]
+            row[name] = {"first_ms": 1e3 * times[0], "ms": ms, "utt_per_s": B / (ms / 1e3),
+                         "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                         "launches": count, "int8_products": int8_count}
+        ref = logits["bf16"]
+        rel = float((logits["int8"] - ref).abs().mean() / (ref.abs().mean() + 1e-6))
+        if not torch.isfinite(logits["int8"]).all() or rel >= INT8_CRITERION:
+            raise AssertionError(f"int8 forward B={B}: mean |int8 - bf16| / mean |bf16| {rel} "
+                                 f"(criterion {INT8_CRITERION})")
+        emit({"phase": "path", "path": "model_forward, int8 backbones beside bf16, DSP on "
+              "worst-case audio", "B": B, "seconds": CLIP_SAMPLES / SAMPLE_RATE,
+              "text_tokens": TEXT_TOKENS, "card": smi, "requests": requests, **row,
+              "int8_vs_bf16": rel, "criterion": INT8_CRITERION,
+              "int8_products_per_forward": per_forward,
+              "backbone_layer_bytes": layers_bytes})
+    del params, qparams
+
+    # 9c. the export CLI --int8 on phase 5d's checkpoint (one bucket, the
+    # features precomputed), the program against the eager int8 forward;
+    # the eval CLI --int8 on phase 5d's manifest, the infer CLI --int8 on a clip
+    ck = work / "checkpoint"
+    mcfg = config_from_json(ckpt.load_config_json(ck)).model
+    art = work / "int8_export"
+    t0 = time.perf_counter()
+    export_cli.main(["--checkpoint", str(ck), "--out_dir", str(art), "--buckets", INT8_BUCKET,
+                     "--int8", "--no_dsp", "--text_tokens", str(TEXT_TOKENS)])
+    export_s = time.perf_counter() - t0
+    seconds, size = (float(INT8_BUCKET.split(":")[0]), int(INT8_BUCKET.split(":")[1]))
+    served = ServingModel(art / f"b{seconds:g}s_bs{size}", device="cuda")
+    batch = example_batch(size, T=int(seconds * SAMPLE_RATE), S=TEXT_TOKENS,
+                          vocab=mcfg.text.vocab_size, seed=5)
+    reset_counts(wrappers)
+    served.predict(batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = served.predict(batch)
+    predict_ms = 1e3 * (time.perf_counter() - t0)
+    qparams = quant.quantize_backbones(ckpt.restore_checkpoint(ck, device="cuda")[0])
+    with torch.inference_mode():
+        eager = mdl.model_forward(qparams, mcfg, {k: torch.from_numpy(v).cuda()
+                                                  for k, v in batch.items()},
+                                  use_openmax=True)
+    count = counts(wrappers)
+    if count["residual_stack"] != 3:
+        raise AssertionError(f"int8 artifact: residual_stack launched {count['residual_stack']} "
+                             "times in 2 predicts and an eager forward")
+    a1 += 3
+    export_err = {name: check_close(f"int8 artifact {name}", torch.from_numpy(got[name]),
+                                    want.float().cpu(), AGREE_TOL["bfloat16"])
+                  for name, want in zip(OUTPUTS, (eager.logits, eager.uncertainty,
+                                                  eager.features))}
+    del qparams, served
+    reset_counts(wrappers)
+    quant.int8_matmul.launches = 0
+    t0 = time.perf_counter()
+    res = eval_cli.main(["--manifest", manifest, "--checkpoint", str(ck), "--int8",
+                         "--batch_size", "8"])
+    eval_s = time.perf_counter() - t0
+    steps = len(res["step_seconds"]) + len(res["calibration_step_seconds"])
+    count = counts(wrappers)
+    if count["residual_stack"] != steps or not quant.int8_matmul.launches:
+        raise AssertionError(f"eval CLI --int8: residual_stack launched "
+                             f"{count['residual_stack']} times in {steps} steps, "
+                             f"{quant.int8_matmul.launches} int8 products")
+    if not np.isfinite(res["logits"]).all():
+        raise AssertionError("eval CLI --int8: logits not finite")
+    a1 += steps
+    clip = work / "datasets" / "clips" / "c000.wav"
+    reset_counts(wrappers)
+    t0 = time.perf_counter()
+    inferred = infer_cli.main(["--checkpoint", str(ck), "--audio", str(clip), "--text",
+                               CLIP_TEXTS[0], "--int8"])
+    infer_s = time.perf_counter() - t0
+    if counts(wrappers)["residual_stack"] != 1 or not np.isfinite(
+            inferred["probabilities"]).all():
+        raise AssertionError("infer CLI --int8: not one A1 launch or probabilities not finite")
+    a1 += 1
+    emit({"phase": "path", "path": "int8 serving: export CLI, exported vs eager, eval CLI, "
+          "infer CLI", "card": smi, "bucket": INT8_BUCKET, "export_s": export_s,
+          "artifact_bytes": artifact_bytes(art), "predict_ms": predict_ms,
+          "exported_vs_eager": export_err, "tol": AGREE_TOL["bfloat16"],
+          "eval_cli_s": eval_s, "eval_steps": steps, "eval_clips_per_s":
+          len(res["logits"]) / res["pass_seconds"], "infer_cli_s": infer_s})
+
+    # 9d. whisper-base: card against CPU at 2 layers in f32 (tokens equal),
+    # then full depth in bf16: log-mel, encode and the 48-token greedy
+    # decode timed apart
+    def transcribe_timed(p, wcfg, B, seed):
+        wave = torch.from_numpy(speech_like(B, int(ASR_CLIP_SECONDS * SAMPLE_RATE), seed))
+        wave = F.pad(wave, (0, 30 * SAMPLE_RATE - wave.shape[1])).cuda()
+        prefix = torch.full((B, 1), wcfg.decoder_start_token_id, dtype=torch.int32,
+                            device="cuda")
+        runs = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            mel = tw.log_mel_spectrogram(wave, n_mels=wcfg.num_mel_bins)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            enc = tw.encode(p, wcfg, mel)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            toks, confs = tw.greedy_decode(p, wcfg, enc, prefix, max_new_tokens=ASR_NEW_TOKENS)
+            toks, confs = toks.cpu(), confs.cpu()
+            t3 = time.perf_counter()
+            runs.append({"mel_ms": 1e3 * (t1 - t0), "encode_ms": 1e3 * (t2 - t1),
+                         "decode_ms": 1e3 * (t3 - t2),
+                         "tokens_per_s": B * ASR_NEW_TOKENS / (t3 - t2),
+                         "max_memory_allocated": torch.cuda.max_memory_allocated()})
+        if tuple(toks.shape) != (B, ASR_NEW_TOKENS) or not (
+                torch.isfinite(confs).all() and (confs > 0).all() and (confs <= 1).all()):
+            raise AssertionError(f"decode B={B}: tokens {tuple(toks.shape)} or confidences "
+                                 "out of (0, 1]")
+        return {"B": B, "first": runs[0], **runs[1]}
+
+    base_cfg = tw.WhisperConfig(**WHISPER_PRESETS["whisper-base"])
+    small = dataclasses.replace(base_cfg, encoder_layers=ASR_AGREE_LAYERS,
+                                decoder_layers=ASR_AGREE_LAYERS)
+    cpu_p = tw.init_whisper(small, torch.Generator().manual_seed(0), "cpu")
+    cpu_p["decoder"]["embed_tokens"] *= ASR_EMBED_SCALE
+    wave = torch.from_numpy(speech_like(2, int(ASR_CLIP_SECONDS * SAMPLE_RATE), seed=3))
+    prefix = torch.full((2, 1), small.decoder_start_token_id, dtype=torch.int32)
+    want_t, want_c = tw.transcribe_batch(cpu_p, small, wave, prefix, max_new_tokens=ASR_NEW_TOKENS)
+    got_t, got_c = tw.transcribe_batch(tree_to(cpu_p, "cuda"), small, wave.cuda(),
+                                       prefix.cuda(), max_new_tokens=ASR_NEW_TOKENS)
+    if not torch.equal(got_t.cpu(), want_t):
+        raise AssertionError("whisper-base, 2 layers: the card's tokens are not the CPU's")
+    conf_err = check_close("whisper-base confidences", got_c.cpu(), want_c,
+                           AGREE_TOL["float32"])
+    emit({"phase": "agree", "path": "whisper-base transcribe_batch", "layers": ASR_AGREE_LAYERS,
+          "dtype": "float32", "tokens_equal": True, "confidence_max_abs_err": conf_err,
+          "tol": AGREE_TOL["float32"], "new_tokens": ASR_NEW_TOKENS})
+    del cpu_p
+    base = tw.init_whisper(base_cfg, torch.Generator(device="cuda").manual_seed(0), "cuda", bf16)
+    emit({"phase": "path", "path": "whisper-base decode, bf16", "card": smi,
+          "clip_seconds": ASR_CLIP_SECONDS, "new_tokens": ASR_NEW_TOKENS,
+          "weight_bytes": tree_bytes(base),
+          "runs": [transcribe_timed(base, base_cfg, B, seed=B)
+                   for B in ASR_BATCHES["whisper-base"]]})
+
+    # 9e. whisper-large-v3 geometry in bf16 and with quantize_whisper
+    large_cfg = tw.WhisperConfig(**WHISPER_PRESETS["whisper-large-v3"])
+    large = tw.init_whisper(large_cfg, torch.Generator(device="cuda").manual_seed(0), "cuda",
+                            bf16)
+    for name in ("bf16", "int8"):
+        if name == "int8":
+            large = quant.quantize_whisper(large)
+        quant.int8_matmul.launches = 0
+        runs = [transcribe_timed(large, large_cfg, B, seed=B)
+                for B in ASR_BATCHES["whisper-large-v3"]]
+        if (quant.int8_matmul.launches > 0) != (name == "int8"):
+            raise AssertionError(f"whisper-large-v3 {name}: {quant.int8_matmul.launches} "
+                                 "int8 products")
+        emit({"phase": "path", "path": f"whisper-large-v3 decode, {name}", "card": smi,
+              "clip_seconds": ASR_CLIP_SECONDS, "new_tokens": ASR_NEW_TOKENS,
+              "weight_bytes": tree_bytes(large),
+              "layer_weight_bytes": tree_bytes({k: large[k]["layers"]
+                                                for k in ("encoder", "decoder")}),
+              "int8_products": quant.int8_matmul.launches, "runs": runs})
+    del large
+
+    # 9f. EnhancedASRIntegration over TorchWhisperASR (whisper-base, bf16)
+    # on one of phase 5d's clips with no text; its features through
+    # model_forward with use_asr; then the eval CLI --use_asr
+    backend = asr.TorchWhisperASR(base, base_cfg, max_new_tokens=ASR_NEW_TOKENS, device="cuda")
+    audio = audio_io.load_audio(str(clip), sr=SAMPLE_RATE, dataset_root=None)
+    text, tokens, _ = backend.transcribe(audio, SAMPLE_RATE)
+    t0 = time.perf_counter()
+    result = asr.EnhancedASRIntegration(backend=backend).process(audio, SAMPLE_RATE)
+    process_s = time.perf_counter() - t0
+    on_card = backend.params["decoder"]["embed_tokens"].is_cuda
+    if not (backend.available and on_card and result.text == text and text
+            and 1 <= len(tokens) <= ASR_NEW_TOKENS):
+        raise AssertionError(f"TorchWhisperASR: available {backend.available}, on cuda "
+                             f"{on_card}, {len(tokens)} tokens, text {text!r}")
+    del base, backend
+    asr_cfg = dataclasses.replace(mcfg, use_asr=True)
+    params, _ = ckpt.restore_checkpoint(ck, device="cuda")
+    ids, tmask = tokenizer.get_tokenizer(vocab_size=asr_cfg.text.vocab_size).encode_batch(
+        [CLIP_TEXTS[0]], TEXT_TOKENS)
+    batch = {"audio": audio[None], "audio_mask": np.ones((1, len(audio)), np.float32),
+             "text_ids": ids, "text_mask": tmask, "asr_feats": result.asr_features[None]}
+    reset_counts(wrappers)
+    with torch.inference_mode():
+        with_asr = mdl.model_forward(params, asr_cfg, batch).logits.float().cpu()
+        without = mdl.model_forward(params, mcfg, batch).logits.float().cpu()
+    if counts(wrappers)["residual_stack"] != 2 or not torch.isfinite(with_asr).all() \
+            or torch.equal(with_asr, without):
+        raise AssertionError("model_forward with use_asr: not finite, not one A1 launch a "
+                             "forward, or the ASR features changed nothing")
+    a1 += 2
+    del params
+    reset_counts(wrappers)
+    t0 = time.perf_counter()
+    res = eval_cli.main(["--manifest", manifest, "--checkpoint", str(ck), "--use_asr",
+                         "--batch_size", "8"])
+    asr_eval_s = time.perf_counter() - t0
+    steps = len(res["step_seconds"]) + len(res["calibration_step_seconds"])
+    if counts(wrappers)["residual_stack"] != steps or not np.isfinite(res["logits"]).all():
+        raise AssertionError("eval CLI --use_asr: not one A1 launch a step, or logits not finite")
+    a1 += steps
+    emit({"phase": "path", "path": "ASR: EnhancedASRIntegration(TorchWhisperASR) -> "
+          "model_forward(use_asr) -> eval CLI --use_asr", "card": smi,
+          "backend_device": "cuda", "tokens": len(tokens), "text_chars": len(text),
+          "process_s": process_s, "asr_features": result.asr_features.tolist(),
+          "logits_shift": float((with_asr - without).abs().max()),
+          "eval_cli_s": asr_eval_s, "eval_steps": steps})
+    emit({"phase": "path", "path": "int8 and ASR (phase 9)",
+          "seconds": time.perf_counter() - t_start, "residual_stack_launches": a1})
+    return a1
 
 
 def reset_counts(wrappers) -> None:
@@ -2162,6 +2554,8 @@ def main() -> int:
         large = large_backbone_phases(torch, wrappers, smi, work, manifest)
         for kname, n in large["launches"].items():
             launches[kname] += n
+        launches["residual_stack"] += int8_asr_phases(torch, wrappers, smi, cfg, work,
+                                                       manifest)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()

@@ -21,12 +21,6 @@ import sys
 from pathlib import Path
 from typing import Optional, Sequence
 
-NOT_PORTED = {
-    "use_asr": "--use_asr: ASR (Whisper) is not ported yet, ROADMAP Queue A item 14",
-    "int8": "--int8: int8 serving is not ported yet, ROADMAP Queue A item 13",
-}
-
-
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--manifest", type=str, required=True)
@@ -40,8 +34,11 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to run on (default cuda; cpu runs the "
                         "plain versions of the kernels)")
-    p.add_argument("--use_asr", action="store_true", help="not ported yet")
-    p.add_argument("--int8", action="store_true", help="not ported yet")
+    p.add_argument("--use_asr", action="store_true",
+                   help="force the ASR feature path on (normally restored from the "
+                        "checkpoint's embedded config)")
+    p.add_argument("--int8", action="store_true",
+                   help="int8-quantise the backbones' encoder matmuls (ops/quant.py)")
     p.add_argument("--gates_no_text", action="store_true",
                    help="the gates see no text (the reference's plain eval "
                         "loop), so LID enters as the no-text constants (1.0, 0.0)")
@@ -65,9 +62,6 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     """Run the CLI; returns evaluate_manifest's results."""
     args = parse_args(argv)
     # flag checks before the (possibly long) run
-    for flag, message in NOT_PORTED.items():
-        if getattr(args, flag):
-            raise SystemExit(message)
     if args.save_temperature and not (args.calibrate and args.val_manifest):
         raise SystemExit("--save_temperature requires --calibrate AND --val_manifest "
                          "to fit one (without the val manifest no temperature is "
@@ -90,6 +84,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     if args.dataset_root:
         cfg = dataclasses.replace(
             cfg, data=dataclasses.replace(cfg.data, dataset_root=args.dataset_root))
+    if args.use_asr:
+        cfg = dataclasses.replace(
+            cfg, model=dataclasses.replace(cfg.model, use_asr=True),
+            data=dataclasses.replace(cfg.data, emit_asr_feats=True))
     if args.gates_no_text:
         cfg = dataclasses.replace(
             cfg, data=dataclasses.replace(cfg.data, gates_see_text=False))
@@ -106,6 +104,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                                      audio_buckets=(cfg.data.max_audio_seconds,)))
 
     params, meta = ckpt.restore_checkpoint(args.checkpoint, device=device)
+    if args.int8:
+        from ..ops import quant
+        params = quant.quantize_backbones(params)
     print(f"Loaded checkpoint: {args.checkpoint} "
           f"(epoch {meta.get('epoch')}, f1 {meta.get('f1')}) on {device}")
 

@@ -21,11 +21,6 @@ import sys
 from pathlib import Path
 from typing import Optional, Sequence
 
-NOT_PORTED = {
-    "int8": "--int8: int8 serving is not ported yet, ROADMAP Queue A item 13",
-}
-
-
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--checkpoint", required=True)
@@ -50,7 +45,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    help="expect precomputed quality/cond feats instead of running the "
                         "front-end DSP in the program")
     p.add_argument("--no_openmax", action="store_true")
-    p.add_argument("--int8", action="store_true", help="not ported yet")
+    p.add_argument("--int8", action="store_true",
+                   help="int8-quantise the backbones' encoder matmuls before the export "
+                        "(ops/quant.py)")
     p.add_argument("--wire", choices=["f32", "int16"], default="f32",
                    help="int16: the program takes raw int16 PCM + per-row lengths "
                         "(~4x fewer host->device bytes; exact for PCM sources)")
@@ -70,9 +67,6 @@ def parse_buckets(spec: str):
 def main(argv: Optional[Sequence[str]] = None) -> Path:
     """Run the CLI; returns the artifact directory."""
     args = parse_args(argv)
-    for flag, message in NOT_PORTED.items():
-        if getattr(args, flag):
-            raise SystemExit(message)
     if args.autotune_buckets:
         if args.buckets:
             raise SystemExit("--autotune_buckets and --buckets are exclusive")
@@ -92,6 +86,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Path:
     cfg_json = ckpt.load_config_json(args.checkpoint)
     cfg = cfg_lib.config_from_json(cfg_json) if cfg_json else cfg_lib.Config()
     params, meta = ckpt.restore_checkpoint(args.checkpoint, device=device)
+    if args.int8:
+        from ..ops import quant
+        params = quant.quantize_backbones(params)
 
     if args.autotune_buckets:
         from ..data import bucketing

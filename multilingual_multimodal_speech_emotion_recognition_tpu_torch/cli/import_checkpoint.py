@@ -34,7 +34,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--compute_dtype", type=str, default="bfloat16",
                    choices=["float32", "bfloat16"],
                    help="compute dtype written into the imported config")
-    p.add_argument("--use_asr", action="store_true", help="not ported yet")
+    p.add_argument("--use_asr", action="store_true",
+                   help="enable the ASR feature path in the imported config")
     p.add_argument("--audio_heads", type=int, default=None,
                    help="the audio encoder's head count (not in the shapes)")
     p.add_argument("--text_heads", type=int, default=None,
@@ -48,8 +49,6 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     """Run the CLI; returns the import report."""
     args = parse_args(argv)
-    if args.use_asr:
-        raise SystemExit("--use_asr: ASR (Whisper) is not ported yet, ROADMAP Queue A item 14")
     import torch
 
     from .. import config as cfg_lib
@@ -63,7 +62,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                          "the legacy OpenMaxClassifier / Classifier-only checkpoints "
                          "are not supported")
     model_cfg = dataclasses.replace(ref_convert.infer_model_config(ckpt),
-                                    compute_dtype=args.compute_dtype)
+                                    compute_dtype=args.compute_dtype,
+                                    use_asr=args.use_asr)
     audio_kw = {}
     if args.audio_heads is not None:
         audio_kw["num_attention_heads"] = args.audio_heads

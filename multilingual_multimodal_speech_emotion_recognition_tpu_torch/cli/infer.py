@@ -5,8 +5,9 @@
         [--visualize fig.png] [--export results.json]
 
 The flags are the repo's cli/infer.py's, with `--device` (default cuda) in
-place of `--platform`; `--int8` exits naming ROADMAP item 13. Without a
-card the CLI exits non-zero unless `--device cpu` is given.
+place of `--platform`; `--int8` quantises the backbones' encoder matmuls
+(ops/quant.py). Without a card the CLI exits non-zero unless `--device cpu`
+is given.
 """
 
 from __future__ import annotations

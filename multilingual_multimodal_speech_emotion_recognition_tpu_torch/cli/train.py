@@ -61,7 +61,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--supcon_weight", type=float, default=0.0)
     p.add_argument("--no_quality_gates", action="store_true")
     p.add_argument("--no_audio_conditioning", action="store_true")
-    p.add_argument("--use_asr", action="store_true", help="not ported yet")
+    p.add_argument("--use_asr", action="store_true",
+                   help="fuse 8-dim ASR features into the text encoder and emit them "
+                        "from the data pipeline (frontend/asr.py)")
     p.add_argument("--audio_backbone", choices=list(AUDIO_BACKBONE_PRESETS),
                    default="wav2vec2-base",
                    help="the audio encoder's preset; the large ones use the "
@@ -106,8 +108,6 @@ def not_ported(args: argparse.Namespace) -> Optional[str]:
             or args.process_id is not None:
         return ("--coordinator_address / --num_processes / --process_id: multi-host "
                 "training is not ported yet, ROADMAP Queue A item 16")
-    if args.use_asr:
-        return "--use_asr: ASR (Whisper) is not ported yet, ROADMAP Queue A item 14"
     return None
 
 

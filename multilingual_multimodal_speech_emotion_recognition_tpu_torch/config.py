@@ -138,8 +138,8 @@ class DataConfig:
     max_text_tokens: int = 64
     audio_buckets: Tuple[float, ...] = (2.0, 4.0, 8.0, 16.0, 30.0)
     dataset_root: str = "datasets"
-    # per-utterance ASR features in batches: Whisper is not ported yet
-    # (ROADMAP Queue A item 14), so the loader raises when this is set
+    # per-utterance 8-dim ASR features in batches (`asr_feats`, built on
+    # the host by frontend/asr.py; manifest text skips the transcription)
     emit_asr_feats: bool = False
     # False: the gates see no text (the reference's plain eval loop), so
     # every row takes the no-text LID constants (1.0, 0.0)

@@ -84,9 +84,6 @@ class BucketedLoader:
                  shuffle: bool = True, seed: int = 0,
                  drop_remainder: bool = False,
                  num_workers: int = 8):
-        if dataset.cfg.emit_asr_feats:
-            raise NotImplementedError(
-                "emit_asr_feats: ASR (Whisper) is not ported yet, ROADMAP Queue A item 14")
         self.ds = dataset
         self.batch_size = batch_size
         self.tokenizer = tokenizer or get_tokenizer()
@@ -95,6 +92,7 @@ class BucketedLoader:
         self.drop_remainder = drop_remainder
         self.num_workers = num_workers
         self.decoder: Optional[str] = None
+        self._asr_integration = None
         cfg = dataset.cfg
         self.bucket_samples = [bucketing.seconds_to_samples(b, cfg.sample_rate)
                                for b in cfg.audio_buckets]
@@ -233,7 +231,7 @@ class BucketedLoader:
         else:
             ents, confs = [1.0] * B, [0.0] * B
         ids, tmask = self.tokenizer.encode_batch(texts, self.ds.cfg.max_text_tokens)
-        return {
+        batch = {
             "audio": audio, "audio_mask": audio_mask,
             "text_ids": ids, "text_mask": tmask,
             "lid_entropy": np.asarray(ents, np.float32),
@@ -241,3 +239,21 @@ class BucketedLoader:
             "labels": labels, "example_mask": example_mask,
             "indices": indices,
         }
+        if self.ds.cfg.emit_asr_feats:
+            # the 8-dim ASR features on the host (frontend/asr.py); with
+            # manifest text present no transcription backend is invoked
+            asr = self._asr()
+            feats = np.zeros((B, 8), np.float32)
+            for r in range(len(loaded)):
+                valid = int(audio_mask[r].sum())
+                res = asr.process(audio[r, :valid], self.ds.cfg.sample_rate,
+                                  text=texts[r] or None)
+                feats[r] = res.asr_features
+            batch["asr_feats"] = feats
+        return batch
+
+    def _asr(self):
+        if self._asr_integration is None:
+            from ..frontend import asr as asr_mod
+            self._asr_integration = asr_mod.EnhancedASRIntegration()
+        return self._asr_integration

@@ -12,7 +12,8 @@ pipeline) and per device (the program holds the device it was traced on;
 export on the device you serve on). Layout on disk:
 
     <dir>/program.pt2    torch.export.save of fn(params, batch)
-    <dir>/params.npz     f32 parameter arrays keyed by path
+    <dir>/params.npz     f32 parameter arrays keyed by path (a quantised
+                         tree's int8 `kernel_q` stays int8, its `w_scale` f32)
     <dir>/spec.json      batch spec, config JSON, output names, devices and
                          the parameter tree's skeleton
 """
@@ -29,6 +30,7 @@ import torch
 from .config import ModelConfig
 from .data import bucketing
 from .models import model as mdl
+from .ops import quant
 from .utils.runtime import resolve_device, tree_to
 
 OUTPUTS = ("logits", "uncertainty", "features")
@@ -85,7 +87,10 @@ def _rebuild_from_skeleton(skel: Dict, arrays: Dict[str, np.ndarray],
     if kind in ("list", "tuple"):
         seq = [_rebuild_from_skeleton(v, arrays, device) for v in skel["items"]]
         return seq if kind == "list" else tuple(seq)
-    return torch.from_numpy(np.array(arrays[skel["key"]])).to(device)
+    leaf = torch.from_numpy(np.array(arrays[skel["key"]]))
+    if leaf.dtype == torch.int8:  # kernel_q: npz keeps it row-major
+        leaf = quant.card_layout(leaf)
+    return leaf.to(device)
 
 
 def _batch_spec(batch_size: int, audio_samples: int, text_tokens: int,

@@ -1,7 +1,8 @@
-"""Signal-processing front-end: quality gates, conditioning, language ID.
+"""Signal-processing front-end: quality gates, conditioning, language ID,
+ASR integration.
 
 Counterpart of multilingual_multimodal_speech_emotion_recognition_tpu/
-frontend/__init__.py without its ASR (Whisper is not ported yet).
+frontend/__init__.py.
 `frontend_process` chains gates then conditioning, as the reference's audio
 encoder does, on the device of the wave it is given.
 """
@@ -10,15 +11,17 @@ from __future__ import annotations
 
 import torch
 
-from . import conditioning, lid, quality_gates, spectral
+from . import asr, conditioning, lid, quality_gates, spectral
+from .asr import ASRResult, EnhancedASRIntegration, create_enhanced_asr
 from .conditioning import (NOISE_TYPES, ConditioningStats, condition_audio,
                            conditioning_report, detect_noise_type)
 from .lid import batch_lid, identify_language
 from .quality_gates import QualityStats, quality_gates as run_quality_gates
 
 __all__ = [
-    "ConditioningStats", "NOISE_TYPES", "QualityStats", "batch_lid",
-    "condition_audio", "conditioning", "conditioning_report",
+    "ASRResult", "ConditioningStats", "EnhancedASRIntegration",
+    "NOISE_TYPES", "QualityStats", "asr", "batch_lid", "condition_audio",
+    "conditioning", "conditioning_report", "create_enhanced_asr",
     "detect_noise_type", "frontend_process", "identify_language", "lid",
     "quality_gates", "run_quality_gates", "spectral",
 ]

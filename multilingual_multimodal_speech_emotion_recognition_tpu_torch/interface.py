@@ -28,13 +28,12 @@ from .data import audio_io
 from .data.tokenizer import Tokenizer, get_tokenizer
 from .frontend import lid as lid_mod
 from .models import model as mdl
-from .ops import audio_dsp
+from .ops import audio_dsp, quant
 from .train import checkpoint as ckpt_lib
 from .utils.runtime import resolve_device, to_device
 
 EMOTION_LABELS_4 = ["angry", "happy", "sad", "neutral"]
 EMOTION_LABELS_6 = ["angry", "happy", "sad", "neutral", "disgust", "fear"]
-INT8_NOT_PORTED = "int8 serving is not ported yet, ROADMAP Queue A item 13"
 
 
 class EmotionRecognitionInterface:
@@ -44,13 +43,15 @@ class EmotionRecognitionInterface:
     def __init__(self, checkpoint_path: str, *, config: Optional[Config] = None,
                  tokenizer: Optional[Tokenizer] = None, quantize_int8: bool = False,
                  device: Optional[Union[str, torch.device]] = None):
-        if quantize_int8:
-            raise NotImplementedError(INT8_NOT_PORTED)
         self.device = resolve_device(device)
         cfg_json = ckpt_lib.load_config_json(checkpoint_path)
         self.cfg = config or (config_from_json(cfg_json) if cfg_json else Config())
         self.params, self.meta = ckpt_lib.restore_checkpoint(checkpoint_path,
                                                              device=self.device)
+        if quantize_int8:
+            # the backbones' encoder matmuls in int8 (ops/quant.py); the
+            # heads and OpenMax stay float
+            self.params = quant.quantize_backbones(self.params)
         self.tokenizer = tokenizer or get_tokenizer(
             vocab_size=self.cfg.model.text.vocab_size)
         # calibration persisted by the eval CLI (`--calibrate
@@ -272,10 +273,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     p.add_argument("--export", default=None, help="path to save JSON results")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default cuda)")
-    p.add_argument("--int8", action="store_true", help="not ported yet")
+    p.add_argument("--int8", action="store_true",
+                   help="int8-quantise the backbones' encoder matmuls (ops/quant.py)")
     args = p.parse_args(argv)
-    if args.int8:
-        raise SystemExit(f"--int8: {INT8_NOT_PORTED}")
     if args.use_tta and not 1 <= args.num_tta <= 5:
         raise SystemExit(f"--num_tta must be in 1..5, not {args.num_tta}")
     try:
@@ -283,7 +283,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     except RuntimeError as e:
         raise SystemExit(f"infer: {e} (--device cpu)") from e
 
-    iface = EmotionRecognitionInterface(args.checkpoint, device=device)
+    iface = EmotionRecognitionInterface(args.checkpoint, device=device,
+                                        quantize_int8=args.int8)
     results = iface.predict_emotion(args.audio, args.text, use_tta=args.use_tta,
                                     num_tta=args.num_tta)
     print(f"Prediction: {results['emotion_labels'][0]} "

@@ -1,7 +1,9 @@
 """Primitive layers as plain functions on tensors, over nested dicts of
 parameters with the JAX package's keys and layouts.
 
-  * ``linear``:     ``{"kernel": [in, out], "bias": [out]}``, y = x @ W + b
+  * ``linear``:     ``{"kernel": [in, out], "bias": [out]}``, y = x @ W + b;
+                    an int8 slot ``{"kernel_q", "w_scale"[, "bias"]}`` goes
+                    to ops/quant.linear_int8
   * ``layer_norm``: ``{"scale": [dim], "bias": [dim]}``
   * ``mha``:        separate q/k/v/out projections, each a ``linear``
 
@@ -23,6 +25,7 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 
+from ..ops import quant
 from . import remat as remat_lib
 
 Tensor = torch.Tensor
@@ -91,9 +94,8 @@ def init_layer_norm(init: Init, dim: int, stack: tuple = ()) -> dict:
 
 
 def linear(params: dict, x: Tensor) -> Tensor:
-    if "kernel_q" in params:
-        raise NotImplementedError(
-            "int8 linear layers are not ported yet (ROADMAP Queue A item 13)")
+    if "kernel_q" in params:  # an int8-quantised slot (ops/quant.py)
+        return quant.linear_int8(params, x)
     y = torch.matmul(x, params["kernel"])
     if "bias" in params:
         y = y + params["bias"]
@@ -233,6 +235,6 @@ def encoder_stack(stacked: dict, h: Tensor, attn_bias: Tensor, *,
         return layer_norm(layer["final_ln"], h + ffn(h, layer, g), eps=eps)
 
     run = remat_lib.apply_remat(body, remat)
-    for i in range(stacked["q"]["kernel"].shape[0]):
+    for i in range(stacked["attn_ln"]["scale"].shape[0]):  # int8 leaves no "kernel"
         h = run(h, layer_at(stacked, i), generator)
     return h

@@ -118,11 +118,27 @@ def test_import_cli_writes_what_the_jax_import_gives(imported):
             assert torch.equal(leaf, bridged[path]), path
 
 
-def test_import_cli_exits_on_use_asr(imported):
+def test_import_cli_exits_on_use_asr(imported, monkeypatch):
+    """--use_asr writes the ASR feature path into the imported config, the
+    config the repo's cli/import_checkpoint.py writes from the same .pt;
+    the parameters are the ones imported without it."""
     root, _, _ = imported
-    with pytest.raises(SystemExit, match="item 14"):
-        import_checkpoint.main(["--reference_checkpoint", str(root / "reference.pt"),
-                                "--out", str(root / "asr"), "--use_asr"])
+    args = ["--reference_checkpoint", str(root / "reference.pt"), "--compute_dtype",
+            "float32", "--audio_heads", "4", "--text_heads", "4", "--use_asr"]
+    import_checkpoint.main(args + ["--out", str(root / "asr")])
+    jax_cli = runpy.run_path(str(REPO / "cli" / "import_checkpoint.py"), run_name="jax_cli")
+    monkeypatch.setattr(sys, "argv", ["import_checkpoint.py", *args, "--out",
+                                      str(root / "asr_jax")])
+    jax_cli["main"]()
+    got = json.loads(tckpt.load_config_json(root / "asr"))
+    want = json.loads((root / "asr_jax" / "config.json").read_text())
+    del want["mesh"]  # the port has no mesh section
+    assert got == want
+    assert got["model"]["use_asr"] is True
+    params, _ = tckpt.restore_checkpoint(root / "asr", device="cpu")
+    plain, _ = tckpt.restore_checkpoint(root / "ckpt", device="cpu")
+    for (path, leaf), (_, want) in zip(leaves_with_paths(params), leaves_with_paths(plain)):
+        assert torch.equal(leaf, want), path
 
 
 def test_eval_infer_and_export_clis_run_the_imported_checkpoint(imported, clips, tmp_path):

@@ -874,3 +874,77 @@ def test_pipeline_and_interface_on_the_card_launch_a1(cuda, tmp_path):
         res = iface.predict_emotion(str(tmp_path / "a.wav"), "hello", use_tta=tta)
         assert np.isfinite(res["logits"]).all()
     assert rs.residual_stack.launches == before + 7
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 8, 16, 17, 796])
+@pytest.mark.parametrize("I,O", [(768, 3072), (64, 24), (512, 8)])
+def test_int8_matmul_on_the_card_is_the_exact_product(cuda, rows, I, O):
+    """torch._int_mm on the card, rows under 17 padded, against the plain
+    int32 product on the same int8 inputs: bitwise; a row-major kernel_q
+    and dims off a multiple of 8 raise."""
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.ops import quant
+    g = torch.Generator().manual_seed(rows + I)
+    xq = torch.randint(-127, 128, (rows, I), generator=g, dtype=torch.int8)
+    kq = quant.card_layout(torch.randint(-127, 128, (I, O), generator=g, dtype=torch.int8))
+    before = quant.int8_matmul.launches
+    got = quant.int8_matmul(xq.to(cuda), kq.to(cuda))
+    assert quant.int8_matmul.launches == before + 1 and got.dtype == torch.int32
+    assert torch.equal(got.cpu(), quant.int8_matmul_plain(xq, kq))
+    with pytest.raises(ValueError, match="column-major"):
+        quant.int8_matmul(xq.to(cuda), kq.contiguous().to(cuda))
+    with pytest.raises(ValueError, match="multiple of 8"):
+        quant.int8_matmul(xq[:, :I - 4].to(cuda), kq[:I - 4].to(cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_linear_int8_on_the_card_matches_the_cpu(cuda, dtype):
+    """The same quantised slot and input: the activations quantise to the
+    same int8 values and the product is exact, so the card's output is the
+    CPU's up to the dequantisation's f32 products (equal) and the cast."""
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.ops import quant
+    g = torch.Generator().manual_seed(0)
+    p = quant.quantize_linear({"kernel": torch.randn(3, 768, 3072, generator=g),
+                               "bias": torch.randn(3, 3072, generator=g)})
+    p = {k: v[1] for k, v in p.items()}
+    for rows in (4, 4 * 199):
+        x = torch.randn(rows, 768, generator=g).to(dtype)
+        want = quant.linear_int8(p, x)
+        got = quant.linear_int8({k: v.to(cuda) for k, v in p.items()}, x.to(cuda))
+        assert got.dtype == dtype
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+def test_whisper_decode_on_the_card_matches_the_cpu(cuda, int8):
+    """A tiny Whisper (d 64, 2 + 2 layers, quantised at min_size 16 for
+    the int8 case) transcribes 2 s clips on the card as on the CPU: tokens
+    equal, confidences within 1e-4 (f32, TF32 off)."""
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.models import (
+        whisper as tw)
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.ops import quant
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.utils.runtime import (
+        tree_to)
+    cfg = tw.WhisperConfig(vocab_size=320, d_model=64, encoder_layers=2,
+                           encoder_attention_heads=4, decoder_layers=2,
+                           decoder_attention_heads=4, encoder_ffn_dim=128,
+                           decoder_ffn_dim=128, max_target_positions=64,
+                           decoder_start_token_id=1, eos_token_id=2)
+    params = tw.init_whisper(cfg, torch.Generator().manual_seed(0), "cpu")
+    if int8:
+        params = quant.quantize_whisper(params, min_size=16)
+    wave = 0.1 * torch.randn(3, 32000, generator=torch.Generator().manual_seed(1))
+    prefix = torch.tensor([[1, 5, 9]] * 3, dtype=torch.int32)
+    want_t, want_c = tw.transcribe_batch(params, cfg, wave, prefix, max_new_tokens=8)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            got_t, got_c = tw.transcribe_batch(tree_to(params, cuda), cfg, wave.to(cuda),
+                                               prefix.to(cuda), max_new_tokens=8)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert torch.equal(got_t.cpu(), want_t)
+    torch.testing.assert_close(got_c.cpu(), want_c, rtol=TOL, atol=TOL)

@@ -166,10 +166,22 @@ def test_loader_options_match_jax(wav_manifest):
         assert_same_batches(list(t.epoch(0)), list(j.epoch(0)))
 
 
-def test_loader_raises_for_asr_features(wav_manifest):
-    ds = tpipe.SERDataset(str(wav_manifest / "m.jsonl"), tcfg.DataConfig(emit_asr_feats=True))
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tpipe.BucketedLoader(ds, batch_size=2, tokenizer=ttok.HashTokenizer(100))
+def test_loader_raises_for_asr_features(wav_manifest, tmp_path):
+    """emit_asr_feats: each row's 8-dim ASR features from its manifest text
+    (no transcription backend is asked where every row has text), equal to
+    JAX's loader; padded rows stay zero."""
+    items = [it for it in jman.read_manifest(wav_manifest / "m.jsonl") if it["text"]]
+    jman.write_manifest(tmp_path / "m.jsonl", items)
+    (tmp_path / "datasets").symlink_to(wav_manifest / "datasets")
+    t, j = loader_pair(tmp_path, shuffle=False, batch_size=3, emit_asr_feats=True)
+    got = list(t.epoch(0))
+    assert_same_batches(got, list(j.epoch(0)))
+    for b in got:
+        assert b["asr_feats"].shape == (3, 8) and b["asr_feats"].dtype == np.float32
+        assert (b["asr_feats"][b["example_mask"] > 0, 7] == 1.0).all()
+        assert not b["asr_feats"][b["example_mask"] == 0].any()
+    backend = t._asr_integration.backend
+    assert backend._model is None and not backend._failed   # never asked
 
 
 def test_native_library_builds_under_build_dir():

@@ -11,6 +11,7 @@ must be equal. The JAX TTA step runs with its speed views' lengths as its
 eager code computes them (`exact_speed_perturb_length`): jitted, it keeps
 one sample more at some lengths (ROADMAP Queue C)."""
 
+import dataclasses
 import json
 import os
 import runpy
@@ -40,6 +41,7 @@ from multilingual_multimodal_speech_emotion_recognition_tpu_torch.cli import eva
 from multilingual_multimodal_speech_emotion_recognition_tpu_torch.data import (
     pipeline as tpipe, tokenizer as ttok)
 from multilingual_multimodal_speech_emotion_recognition_tpu_torch.eval import evaluate as tev
+from multilingual_multimodal_speech_emotion_recognition_tpu_torch.ops import quant as tquant
 from multilingual_multimodal_speech_emotion_recognition_tpu_torch.train import (
     checkpoint as tckpt)
 from multilingual_multimodal_speech_emotion_recognition_tpu_torch.utils import (
@@ -48,6 +50,7 @@ from multilingual_multimodal_speech_emotion_recognition_tpu_torch.utils import (
 from test_model import tiny_config
 from test_torch_audio_dsp import exact_speed_perturb_length
 from torch_port_helpers import assert_close, perturb
+from torch_port_helpers import offline_hub  # noqa: F401  (a fixture)
 
 REPO = Path(__file__).resolve().parents[1]
 SR = 16000
@@ -306,14 +309,45 @@ def test_cli_scores_a_manifest_on_the_cpu(synth, jax_params, jax_results, tmp_pa
 
 
 @pytest.mark.parametrize("flags,message", [
-    (["--use_asr", "--device", "cpu"], "item 14"),
-    (["--int8", "--device", "cpu"], "item 13"),
     (["--save_temperature", "--calibrate", "--device", "cpu"], "requires --calibrate"),
     (["--use_tta", "--num_tta", "7", "--device", "cpu"], "num_tta"),
 ])
 def test_cli_refuses_before_the_run(synth, flags, message):
     with pytest.raises(SystemExit, match=message):
         tcli.main(["--manifest", str(synth / "m.jsonl"), "--checkpoint", "nowhere", *flags])
+
+
+@pytest.mark.parametrize("flag", ["--use_asr", "--int8"])
+def test_cli_use_asr_and_int8_score_on_the_cpu(synth, jax_params, jax_results, tmp_path,
+                                               monkeypatch, offline_hub, flag):
+    """--use_asr scores through the text encoder's ASR fusion on the
+    loader's features (from the manifest text: no backend is asked);
+    --int8 with the backbones quantised (here at min_size 16, so that these
+    widths have int8 kernels). Each equals evaluate_manifest on the config
+    or the parameters the flag stands for; the ASR fusion moves the
+    logits, and the int8 linears run."""
+    jc = jax_config(synth)
+    ck = save_port_checkpoint(jax_params, jc, tmp_path / "ck")
+    manifest = str(synth / "m.jsonl")
+    cfg, params = port_config(jc), port_params(jax_params, jc)
+    if flag == "--use_asr":
+        cfg = dataclasses.replace(
+            cfg, model=dataclasses.replace(cfg.model, use_asr=True),
+            data=dataclasses.replace(cfg.data, emit_asr_feats=True))
+    else:
+        quantize = tquant.quantize_backbones
+        monkeypatch.setattr(tquant, "quantize_backbones",
+                            lambda p, **kw: quantize(p, min_size=16))
+        params = tquant.quantize_backbones(params)
+    products, plain = [], tquant.int8_matmul_plain
+    monkeypatch.setattr(tquant, "int8_matmul_plain",
+                        lambda xq, kq: products.append(xq.shape) or plain(xq, kq))
+    got = tcli.main(["--manifest", manifest, "--checkpoint", str(ck), "--device", "cpu", flag])
+    assert bool(products) == (flag == "--int8")
+    want = tev.evaluate_manifest(params, cfg, manifest, batch_size=BATCH, device="cpu")
+    np.testing.assert_array_equal(got["logits"], want["logits"])
+    if flag == "--use_asr":
+        assert np.abs(got["logits"] - jax_results["plain"]["logits"]).max() > 10 * TOL["float32"]
 
 
 def test_cli_without_a_card_exits_non_zero(synth, jax_params, tmp_path):

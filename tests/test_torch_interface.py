@@ -29,6 +29,8 @@ from multilingual_multimodal_speech_emotion_recognition_tpu_torch.data import (
     tokenizer as ttok)
 from multilingual_multimodal_speech_emotion_recognition_tpu_torch.train import (
     checkpoint as tckpt)
+from multilingual_multimodal_speech_emotion_recognition_tpu_torch.utils.runtime import (
+    leaves_with_paths)
 
 from test_model import tiny_config
 from test_torch_audio_dsp import exact_speed_perturb_length
@@ -176,10 +178,21 @@ def test_export_and_visualize(checkpoints, tmp_path):
 
 
 def test_int8_and_a_missing_card_raise(checkpoints):
-    root, _ = checkpoints
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tiface.EmotionRecognitionInterface(str(root / "port"), quantize_int8=True,
-                                           device="cpu")
+    """quantize_int8 quantises the backbones after the restore, as JAX's
+    interface does: at these widths, under quantize_backbones' min_size of
+    512, every kernel stays float, so the int8 interfaces of both packages
+    predict what the float ones do (tests/test_torch_quant.py holds a
+    512-wide model). Without a card the default device raises."""
+    root, wavs = checkpoints
+    port = tiface.EmotionRecognitionInterface(str(root / "port"), quantize_int8=True,
+                                              device="cpu", tokenizer=ttok.HashTokenizer(100))
+    want = jiface.EmotionRecognitionInterface(str(root / "jax"), quantize_int8=True,
+                                              tokenizer=jtok.HashTokenizer(100))
+    plain, _ = tckpt.restore_checkpoint(str(root / "port"), device="cpu")
+    got, float_leaves = dict(leaves_with_paths(port.params)), dict(leaves_with_paths(plain))
+    assert got.keys() == float_leaves.keys()
+    assert all(torch.equal(leaf, float_leaves[path]) for path, leaf in got.items())
+    assert_results_match(port.predict_batch(wavs, TEXTS), want.predict_batch(wavs, TEXTS))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tiface.EmotionRecognitionInterface(str(root / "port"))

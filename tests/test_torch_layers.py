@@ -80,5 +80,14 @@ def test_mha_with_key_padding(jdt, tdt, tol):
 
 
 def test_int8_linear_is_not_ported():
-    with pytest.raises(NotImplementedError, match="Queue A item 13"):
-        tl.linear({"kernel_q": torch.zeros(2, 2, dtype=torch.int8)}, torch.zeros(1, 2))
+    """`linear` on an int8 slot {kernel_q, w_scale, bias} is
+    ops/quant.linear_int8, and equals JAX's `linear` on the same slot (the
+    int32 product exact, the dequantisation the same f32 products)."""
+    from multilingual_multimodal_speech_emotion_recognition_tpu.ops import quant as jq
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.ops import quant as tq
+    jp = jq.quantize_linear(jl.init_linear(jax.random.key(0), 24, 16))
+    tp = {k: torch.from_numpy(np.array(v)) for k, v in jp.items()}
+    x = RNG.standard_normal((3, 5, 24)).astype(np.float32)
+    got = tl.linear(tp, t(x))
+    torch.testing.assert_close(got, tq.linear_int8(tp, t(x)), rtol=0, atol=0)
+    assert_close(got, jl.linear(jp, j(x)), F32_TOL)

@@ -42,5 +42,6 @@ def test_port_imports_without_jax():
                    "export", "serving", "interface", "integration", "research.temporal",
                    "research.dual_gate_ood", "cli.export", "cli.serve", "cli.infer",
                    "models.hf_convert", "models.ref_convert", "cli.import_checkpoint",
-                   "cli.export_torch", "cli.make_manifest"):
+                   "cli.export_torch", "cli.make_manifest", "ops.quant", "models.whisper",
+                   "frontend.asr"):
         assert port + module in report["imported"]

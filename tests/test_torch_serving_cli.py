@@ -26,6 +26,8 @@ from multilingual_multimodal_speech_emotion_recognition_tpu_torch.cli import (
     export as export_cli, infer as infer_cli, serve as serve_cli)
 from multilingual_multimodal_speech_emotion_recognition_tpu_torch.data import (
     audio_io, manifest)
+from multilingual_multimodal_speech_emotion_recognition_tpu_torch.export import ServingModel
+from multilingual_multimodal_speech_emotion_recognition_tpu_torch.ops import quant as tquant
 from multilingual_multimodal_speech_emotion_recognition_tpu_torch.train import (
     checkpoint as tckpt)
 
@@ -151,13 +153,36 @@ def test_infer_scores_a_clip_and_exports_json(checkpoint, tmp_path):
 
 
 @pytest.mark.parametrize("cli", ["export", "infer"])
-def test_int8_exits_naming_its_item(checkpoint, tmp_path, cli):
+def test_int8_exits_naming_its_item(checkpoint, tmp_path, cli, monkeypatch):
+    """--int8 quantises the backbones before the CLI's work (here at
+    min_size 16, so that these widths have int8 kernels): the export's
+    params.npz holds int8 kernel_q and f32 w_scale, and its program
+    predicts; infer predicts through the int8 products."""
     _, ck = checkpoint
-    argv = {"export": ["--checkpoint", str(ck), "--out_dir", str(tmp_path), "--int8"],
-            "infer": ["--checkpoint", str(ck), "--int8", "--device", "cpu"]}[cli]
-    main = {"export": export_cli.main, "infer": infer_cli.main}[cli]
-    with pytest.raises(SystemExit, match="item 13"):
-        main(argv)
+    quantize, plain = tquant.quantize_backbones, tquant.int8_matmul_plain
+    products = []
+    monkeypatch.setattr(tquant, "quantize_backbones", lambda p, **kw: quantize(p, min_size=16))
+    monkeypatch.setattr(tquant, "int8_matmul_plain",
+                        lambda xq, kq: products.append(xq.shape) or plain(xq, kq))
+    if cli == "export":
+        art = export_cli.main(["--checkpoint", str(ck), "--out_dir", str(tmp_path / "art"),
+                               "--int8", "--device", "cpu", "--batch_size", "2",
+                               "--audio_seconds", "0.5", "--text_tokens", "8", "--no_dsp"])
+        npz = np.load(art / "params.npz")
+        key = "['audio_backbone']['layers']['q']"
+        assert npz[key + "['kernel_q']"].dtype == np.int8
+        assert npz[key + "['w_scale']"].dtype == np.float32
+        model = ServingModel(art, device="cpu")
+        batch = {k: np.ones(s, d) for k, (s, d) in model.spec["batch_spec"].items()}
+        batch["audio"] = 0.1 * np.random.default_rng(0).standard_normal(batch["audio"].shape)
+        batch["text_ids"][:, 1:] = 7
+        out = model.predict(batch)
+        assert np.isfinite(out["logits"]).all() and out["logits"].shape == (2, 4)
+    else:
+        res = infer_cli.main(["--checkpoint", str(ck), "--int8", "--device", "cpu",
+                              "--text", "so happy today"])
+        assert np.isfinite(res["probabilities"]).all()
+    assert products   # the int8 linears ran
 
 
 @pytest.mark.parametrize("cli", ["export", "serve", "infer"])

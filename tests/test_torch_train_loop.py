@@ -260,6 +260,7 @@ PRESET_ARGS = {
               "--grad_accum", "2", "--backbone_moment_dtype", "bfloat16", "--seed", "7",
               "--supcon_weight", "0.1", "--no_quality_gates", "--early_stop_patience", "2",
               "--scheduler", "cosine_restarts", "--autotune_buckets", "2", "--two_phase"],
+    "use_asr": ["--use_asr"],
 }
 
 
@@ -293,7 +294,7 @@ def test_cli_builds_the_jax_cli_config(preset, clips, monkeypatch, tmp_path):
 @pytest.mark.parametrize("flag,item", [
     (["--fsdp"], "item 16"), (["--mesh_model", "2"], "item 16"),
     (["--num_processes", "2"], "item 16"), (["--mesh_dcn", "2"], "item 16"),
-    (["--coordinator_address", "localhost:1"], "item 16"), (["--use_asr"], "item 14")])
+    (["--coordinator_address", "localhost:1"], "item 16"), (["--fsdp_min_size", "4"], "item 16")])
 def test_cli_flags_of_unported_modules_exit_with_their_roadmap_item(flag, item):
     with pytest.raises(SystemExit, match=item):
         tcli.main(flag + ["--device", "cpu"])

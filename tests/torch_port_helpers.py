@@ -3,6 +3,7 @@ package on the CPU: parameters are made by the JAX init functions and cross
 to the port through its weight bridge; inputs are numpy arrays from a seed."""
 
 import numpy as np
+import pytest
 import jax
 import jax.numpy as jnp
 import torch
@@ -44,3 +45,27 @@ def perturb(tree, rng, scale=0.1):
     return jax.tree.map(
         lambda a: (np.asarray(a) + scale * rng.standard_normal(np.shape(a))
                    ).astype(np.asarray(a).dtype), tree)
+
+
+@pytest.fixture
+def offline_hub(monkeypatch):
+    """Hugging Face hub lookups fail at once (HF_HUB_OFFLINE, also where the
+    hub's constants were read before this test), and any attempt to
+    resolve or reach a host fails the test instead of leaving."""
+    import socket
+
+    import huggingface_hub.constants
+
+    attempts = []
+
+    def refuse(*args, **kw):
+        attempts.append(args[:2])
+        raise OSError("network access refused by the test")
+
+    monkeypatch.setenv("HF_HUB_OFFLINE", "1")
+    monkeypatch.setattr(huggingface_hub.constants, "HF_HUB_OFFLINE", True)
+    for name in ("getaddrinfo", "create_connection"):
+        monkeypatch.setattr(socket, name, refuse)
+    monkeypatch.setattr(socket.socket, "connect", refuse)
+    yield
+    assert attempts == [], f"network access attempted: {attempts}"
