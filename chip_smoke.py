@@ -51,9 +51,11 @@ Phases, one JSON line each:
                 logits / 1.2: ms, utt/s, peak memory (kernel A1)
   6. train    training, through the entry points a user calls:
               - a small model's train step and `compute_loss` with its
-                gradients on the card against the CPU (f32, dropout out):
-                losses and gradients, and the parameters after two steps,
-                within TRAIN_TOL; the frozen leaves bitwise unchanged;
+                gradients on the card against the CPU (f32, dropout out),
+                two steps, each from the CPU's parameters and optimizer
+                state: losses and gradients within TRAIN_TOL, the parameters
+                within TRAIN_TOL plus what AdamW's arithmetic makes of the
+                gradients' difference; the frozen leaves bitwise unchanged;
               - the flagship train step, frozen backbones (the default
                 TrainConfig), B=16, 4 s clips, 32 tokens, augmentation in
                 the step with one speed factor a batch, with the DSP in the
@@ -144,6 +146,31 @@ Phases, one JSON line each:
                 bf16, on the card) on a clip without text, its 8 features
                 through `model_forward` with `use_asr`, then the eval CLI
                 --use_asr on the manifest
+ 10. academic the evaluation suite, cascade fitting and distillation, on
+              phase 5d's full-width checkpoint:
+              - A1 at the slice's classifiers, the flagship's (L=35, D=512)
+                at B = 1 and 8 and the distilled students' (L=8, D=256) and
+                (L=3, D=64) at B = 1, 3, 8, 40, against its plain version:
+                plans, ms, plain ms and the bound (comparison launches, not
+                counted on the path);
+              - card against CPU, the flagship cut to 2 layers at full
+                width: `collect_logits` over 8 of the clips (bf16,
+                AGREE_TOL), `add_noise_at_snr` babble, music and gaussian
+                fed one draw (VIEW_TOL), one few-shot `adapt` step and one
+                distill step into a 2-layer 'small' student with feature
+                matching (f32, dropout out, TRAIN_TOL);
+              - the `academic_eval` CLI on 48 new clips whose texts the
+                code-mixing and zero-shot tables change: few-shot K 8 and
+                16, SNR 10 and 0, zero-shot hi/bn/te, class 3 held out as
+                unknown, the benchmark on: seconds per part, the CLI's s,
+                every part in academic_evaluation.json, A1 once in each of
+                its eval forwards, peak memory;
+              - the `distill` CLI, flagship -> 'small' student, 1 epoch,
+                batch 8: step ms (CUDA events between the steps that
+                `make_distill_step` returns), epoch s, A1
+                once a teacher forward and a validation step; the eval CLI
+                --predictions_out on the student and on the teacher; the
+                `fit_cascade` CLI at an escalation budget of 0.15
 Then the script's wall time, the `kernels` line and, last,
 {"ok": true, "device": {...}}.
 
@@ -237,6 +264,22 @@ ASR_CLIP_SECONDS = 10.0   # padded to Whisper's 30 s window
 ASR_BATCHES = {"whisper-base": (1, 8, 32), "whisper-large-v3": (1, 8)}
 ASR_AGREE_LAYERS = 2      # 9d's card-against-CPU check
 ASR_EMBED_SCALE = 10.0    # spreads a random model's logits, so argmax ties cannot decide 9d
+# 10a's (L, D) -> rows: the flagship's classifier at the benchmark's and the
+# CLIs' batches (its teacher and eval forwards run B=8), then the 'small' and
+# 'tiny' students' at 8, the CLIs' batch, and 40, its TTA step's
+A1_SLICE_SHAPES = {(35, 512): (1, 8), (8, 256): (1, 3, 8, 40), (3, 64): (1, 3, 8, 40)}
+ACADEMIC_LAYERS = 2                     # 10b: both encoders cut to 2 layers, full width
+# 10c-d's clip texts: words of the code-mixing and zero-shot tables (the, is,
+# and, a, it, good, angry, happy, sad, neutral), so both change what they feed
+ACADEMIC_TEXTS = ("the angry one is shouting", "a happy word and a good smile",
+                  "the sad one is crying", "it is a neutral word")
+ACADEMIC_ARGS = ("--few_shot_shots", "8", "16", "--few_shot_epochs", "1", "--snr_levels",
+                 "10", "0", "--zero_shot_langs", "hi", "bn", "te",
+                 "--open_set_unknown_class", "3")
+ACADEMIC_PARTS = ("baseline", "cross_lingual", "calibration", "asr_tracking", "risk_coverage",
+                  "open_set", "inference_benchmark", "per_snr", "few_shot", "robustness",
+                  "zero_shot", "per_class_accuracy", "confusion_matrix", "part_seconds")
+CASCADE_BUDGET = 0.15
 SOURCE = "multilingual_multimodal_speech_emotion_recognition_tpu_torch/csrc/{}.cu"
 REPLACES = "multilingual_multimodal_speech_emotion_recognition_tpu/ops/pallas_kernels.py:{}"
 
@@ -365,21 +408,13 @@ def speech_like(B: int, T: int, seed: int) -> np.ndarray:
 
 def worst_case_dsp_audio(B: int, T: int, seed: int) -> np.ndarray:
     """Rows that fire every front-end branch that can fire and pass the
-    gates (a copy of the JAX package's eval/benchmark.py
-    worst_case_dsp_audio): even rows a 50 Hz hum over 130 Hz energy (notch,
-    HPF), odd rows an AM square wave whose high sample-energy floor sets
-    off the denoiser; both faded in and out over 12 % of the clip."""
-    rng = np.random.default_rng(seed)
-    t = np.arange(T) / SAMPLE_RATE
-    edge = max(1, int(0.12 * T))
-    env = np.minimum(1.0, np.minimum(np.arange(T), np.arange(T)[::-1]) / edge)
-    am = 1.0 + 0.6 * np.sin(2 * np.pi * 3.0 * t)
-    hum_clip = (0.3 * np.sin(2 * np.pi * 50.0 * t) + 0.3 * np.sin(2 * np.pi * 130.0 * t)
-                + 0.12 * np.sin(2 * np.pi * 220.0 * t) * am)
-    noisy_clip = 0.35 * am * np.sign(np.sin(2 * np.pi * 370.0 * t))
-    x = np.where((np.arange(B) % 2 == 0)[:, None], hum_clip[None, :], noisy_clip[None, :]) \
-        + 0.02 * rng.standard_normal((B, T))
-    return np.clip(x * env[None, :], -1.0, 1.0).astype(np.float32)
+    gates (the port's eval/benchmark.worst_case_dsp_audio, from a
+    default_rng seeded with `seed`): even rows a 50 Hz hum over 130 Hz
+    energy (notch, HPF), odd rows an AM square wave whose high sample-energy
+    floor sets off the denoiser; both faded in and out over 12 % of the
+    clip."""
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.eval import benchmark
+    return benchmark.worst_case_dsp_audio(np.random.default_rng(seed), B, T, SAMPLE_RATE)
 
 
 def host_reads(torch, fn):
@@ -596,11 +631,11 @@ def tta_card_against_cpu(torch, audio: np.ndarray, audio_mask: np.ndarray, ids, 
     return errs
 
 
-def write_manifest_clips(root, n: int, seed: int) -> str:
+def write_manifest_clips(root, n: int, seed: int, texts=CLIP_TEXTS) -> str:
     """n clips of 0.6-7 s (the 2, 4 and 8 s buckets) as 16-bit WAVs under
     root/datasets: a class tone (220-660 Hz) with two harmonics under a 3 Hz
-    envelope and a little noise, labels 0-3 in turn, a text for each
-    class. Returns the manifest's path."""
+    envelope and a little noise, labels 0-3 in turn, texts[label] for each
+    clip. Returns the manifest's path."""
     from multilingual_multimodal_speech_emotion_recognition_tpu_torch.data import (
         audio_io, manifest)
     rng = np.random.default_rng(seed)
@@ -617,7 +652,7 @@ def write_manifest_clips(root, n: int, seed: int) -> str:
             + 0.1 * np.sin(6 * np.pi * f0 * t))
         x += 0.01 * rng.standard_normal(L)
         audio_io.write_wav(wavdir / f"c{i:03d}.wav", x.astype(np.float32), SAMPLE_RATE)
-        items.append({"audio": f"clips/c{i:03d}.wav", "text": CLIP_TEXTS[label],
+        items.append({"audio": f"clips/c{i:03d}.wav", "text": texts[label],
                       "label": label, "dataset": "synthetic"})
     path = root / "manifest.jsonl"
     manifest.write_manifest(path, items)
@@ -653,64 +688,48 @@ def cloned(tree):
 
 
 def train_card_against_cpu(torch, small: dict) -> dict:
-    """A small model's compute_loss, its gradients and two train steps on
-    the card against the CPU, f32, dropout out (the plain classifier stack,
-    as in training): each within TRAIN_TOL; the frozen leaves bitwise equal
-    to where they started. Returns the errors."""
+    """A small model's train step on the card against the CPU, f32, dropout
+    out (the plain classifier stack, as in training): two steps, each from
+    the CPU's parameters and optimizer state on both devices. For each,
+    compute_loss, its gradients and the parameters after the step through
+    `step_card_against_cpu`, and the step's own loss within TRAIN_TOL; the
+    frozen leaves bitwise equal to where they started, the count one more.
+    Returns the errors of each step."""
     from multilingual_multimodal_speech_emotion_recognition_tpu_torch.config import TrainConfig
     from multilingual_multimodal_speech_emotion_recognition_tpu_torch.models import (
         model as mdl)
     from multilingual_multimodal_speech_emotion_recognition_tpu_torch.train import (
         optimizer as opt_lib, train_step as ts)
     from multilingual_multimodal_speech_emotion_recognition_tpu_torch.utils.runtime import (
-        map_leaves, tree_to)
+        tree_to)
     cfg = dropout_free(tiny_config("float32"))
     tcfg = TrainConfig(grad_clip=1.0)
     batch = {**small, "labels": np.array([0, 1, 2, 3], np.int32)}
-    errs = {}
     start = mdl.init_model(cfg, torch.Generator().manual_seed(3), "cpu")
-    runs = {}
-    for dev in ("cpu", "cuda"):
-        params = cloned(tree_to(start, dev))
-        opt = opt_lib.make_train_optimizer(params, lr=TRAIN_LR, total_steps=4)
-        leaves = opt.trainable(params)
-        alias = {p: t.detach().requires_grad_(True) for p, t in leaves}
-        loss, _ = ts.compute_loss(map_leaves(params, lambda p, t: alias.get(p, t)), cfg, tcfg,
-                                  batch,
-                                  generator=torch.Generator(device=dev).manual_seed(0))
-        grads = torch.autograd.grad(loss, [alias[p] for p, _ in leaves], allow_unused=True,
-                                    materialize_grads=True)
-        state = opt.init(params)
-        step = ts.make_train_step(cfg, tcfg, opt, device=dev)
-        metrics = [step(params, state, batch, seed) for seed in (0, 1)]
-        runs[dev] = {"loss": loss.detach(), "grads": dict(zip((p for p, _ in leaves), grads)),
-                     "params": params, "metrics": metrics, "count": int(state["count"])}
-    cpu, card = runs["cpu"], runs["cuda"]
-    errs["loss"] = check_close("compute_loss card vs CPU", card["loss"].cpu(), cpu["loss"],
-                               TRAIN_TOL)
-    errs["grads"] = max(check_close(f"grad {p} card vs CPU", card["grads"][p].cpu(), g, TRAIN_TOL)
-                        for p, g in cpu["grads"].items())
-    # AdamW's g / sqrt(v) turns a gradient that is zero but for rounding
-    # (the attention key biases, which the softmax cancels) into a step of
-    # about lr of either sign: those leaves are held to 2 lr a step
-    scale = max(float(g.abs().max()) for g in cpu["grads"].values())
-    noise = {p for p, g in cpu["grads"].items() if float(g.abs().max()) < 1e-5 * scale}
-    errs["params_after_2_steps"] = max(
-        check_close(f"param {p} card vs CPU", dict(tree_leaves(card["params"]))[p].cpu(), t,
-                    TRAIN_TOL) for p, t in tree_leaves(cpu["params"]) if p not in noise)
-    errs["noise_gradient_leaves"] = len(noise)
-    errs["params_after_2_steps_noise_gradient"] = max(check_close(
-        f"param {p} card vs CPU", dict(tree_leaves(card["params"]))[p].cpu(),
-        dict(tree_leaves(cpu["params"]))[p], 2 * TRAIN_LR * 2) for p in noise)
-    for dev, run in runs.items():
-        for p, t in tree_leaves({k: run["params"][k] for k in ("audio_backbone", "text_backbone")}):
-            if not torch.equal(t.cpu(), dict(tree_leaves(start))[p]):
-                raise AssertionError(f"{dev}: the frozen leaf {p} changed in the train steps")
-        if run["count"] != 2:
-            raise AssertionError(f"{dev}: step count {run['count']} after 2 steps")
-    errs["step_loss"] = max(check_close("train step loss card vs CPU", g.loss.cpu(), w.loss,
-                                        TRAIN_TOL)
-                            for g, w in zip(card["metrics"], cpu["metrics"]))
+    frozen = tree_leaves({k: start[k] for k in ("audio_backbone", "text_backbone")})
+    opt = opt_lib.make_train_optimizer(start, lr=TRAIN_LR, total_steps=4)
+    steps = {dev: ts.make_train_step(cfg, tcfg, opt, device=dev) for dev in ("cpu", "cuda")}
+    params, state = cloned(start), opt.init(start)
+    errs = {}
+    for n in (1, 2):
+        before = cloned(state)
+        runs = {}
+        for dev, p, s in (("cuda", tree_to(params, "cuda"), tree_to(state, "cuda")),
+                          ("cpu", params, state)):
+            loss, grads = loss_and_grads(torch, opt, p, lambda view: ts.compute_loss(
+                view, cfg, tcfg, batch, generator=torch.Generator(device=dev).manual_seed(0))[0])
+            metrics = steps[dev](p, s, batch, n)
+            runs[dev] = {"loss": loss, "grads": grads, "params": p, "metrics": metrics}
+            leaves = dict(tree_leaves(p))
+            if any(not torch.equal(leaves[path].cpu(), t) for path, t in frozen):
+                raise AssertionError(f"{dev}: a frozen leaf changed in train step {n}")
+            if int(s["count"]) != n:
+                raise AssertionError(f"{dev}: step count {int(s['count'])} after {n} steps")
+        errs[f"step {n}"] = {
+            **step_card_against_cpu(torch, opt, before, runs["cuda"], runs["cpu"]),
+            "step_loss": check_close("train step loss card vs CPU",
+                                     runs["cuda"]["metrics"].loss.cpu(),
+                                     runs["cpu"]["metrics"].loss, TRAIN_TOL)}
     return errs
 
 
@@ -2026,6 +2045,381 @@ def int8_asr_phases(torch, wrappers, smi: str, cfg, work: Path, manifest: str) -
     return a1
 
 
+def academic_card_against_cpu(torch, cfg, work: Path) -> dict:
+    """10b: the battery's parts on the card against the CPU, the flagship
+    cut to ACADEMIC_LAYERS encoder layers at full width from one set of CPU
+    parameters: collect_logits over 8 of the clips (bf16, AGREE_TOL), noise
+    at SNR on 4 s rows (VIEW_TOL), one few-shot adapt step and one distill
+    step into a 'small' student cut the same way (f32, dropout out,
+    TRAIN_TOL). Returns the errors."""
+    import dataclasses
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.config import (
+        Config, DataConfig, TrainConfig)
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.data import (
+        manifest as manifest_lib, pipeline, tokenizer)
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.eval import (
+        evaluate as ev, few_shot, robustness)
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.models import (
+        model as mdl)
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.train import (
+        distill, optimizer as opt_lib)
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.utils.runtime import (
+        tree_to)
+    errs = {}
+    cut = dataclasses.replace(cfg, audio=dataclasses.replace(cfg.audio,
+                                                             num_hidden_layers=ACADEMIC_LAYERS),
+                              text=dataclasses.replace(cfg.text,
+                                                       num_hidden_layers=ACADEMIC_LAYERS))
+    cpu_params = mdl.init_model(cut, torch.Generator().manual_seed(3), "cpu")
+    card_params = tree_to(cpu_params, "cuda")
+
+    # the baseline pass: collect_logits over the same 8 clips (0.6-1.8 s) at
+    # the CLIs' batch of 8
+    rows = manifest_lib.read_manifest(work / "manifest.jsonl")[:8]
+    manifest_lib.write_manifest(work / "agree.jsonl", rows)
+    data = DataConfig(dataset_root=str(work / "datasets"))
+    tok = tokenizer.get_tokenizer(vocab_size=cut.text.vocab_size)
+    loader = pipeline.BucketedLoader(pipeline.SERDataset(str(work / "agree.jsonl"), data),
+                                     batch_size=8, tokenizer=tok, shuffle=False)
+    bf16_cfg = Config(model=dataclasses.replace(cut, compute_dtype="bfloat16"), data=data)
+    want = ev.collect_logits(cpu_params, bf16_cfg, loader, use_openmax=True, device="cpu")
+    got = ev.collect_logits(card_params, bf16_cfg, loader, use_openmax=True, device="cuda")
+    if not np.array_equal(got["indices"], want["indices"]):
+        raise AssertionError("collect_logits: the card and the CPU scored other rows")
+    errs["collect_logits bf16"] = check_close(
+        "collect_logits card vs CPU", torch.from_numpy(got["logits"]),
+        torch.from_numpy(want["logits"]), AGREE_TOL["bfloat16"])
+
+    # noise at SNR: 4 s rows, one padded; gaussian fed one draw
+    rng = np.random.default_rng(10)
+    wave = torch.from_numpy(speech_like(AGREE_B, CLIP_SAMPLES, seed=10))
+    mask = torch.ones_like(wave)
+    mask[1, CLIP_SAMPLES // 2:] = 0
+    wave = wave * mask
+    draw = torch.from_numpy(rng.standard_normal(tuple(wave.shape)).astype(np.float32))
+    for noise_type in ("gaussian", "babble", "music"):
+        for snr in (10.0, 0.0):
+            w = robustness.add_noise_at_snr(wave, mask, snr, noise_type=noise_type, noise=draw)
+            g = robustness.add_noise_at_snr(wave.cuda(), mask.cuda(), snr, noise_type=noise_type,
+                                            noise=draw.cuda())
+            errs[f"add_noise_at_snr {noise_type} {snr:g} dB"] = check_close(
+                f"add_noise_at_snr {noise_type} {snr:g} dB card vs CPU", g.cpu(), w, VIEW_TOL)
+
+    # one few-shot adapt step and one distill step, f32, dropout out: the
+    # loss and its gradients, then the parameters after the step
+    f32 = dataclasses.replace(dropout_free(cut), compute_dtype="float32")
+    batch = {**agree_rows(seed=10), "labels": np.array([0, 1, 2, 3], np.int32),
+             "example_mask": np.array([1, 1, 1, 0], np.float32)}
+    opt = few_shot.make_adapt_optimizer(cpu_params, TRAIN_LR)
+    runs = {}
+    for dev, params in (("cpu", cpu_params), ("cuda", card_params)):
+        loss, grads = loss_and_grads(
+            torch, opt, params, lambda view: few_shot.adapt_loss(
+                view, f32, batch, torch.Generator(device=dev)))
+        runs[dev] = {"loss": loss, "grads": grads,
+                     "params": few_shot.adapt(params, f32, lambda: [batch], num_epochs=1,
+                                              lr=TRAIN_LR)}
+    errs.update({f"few_shot adapt step {k}": v for k, v in step_card_against_cpu(
+        torch, opt, opt.init(cpu_params), runs["cuda"], runs["cpu"]).items()})
+
+    small = distill.student_model_config(f32, "small")
+    student_cfg = dropout_free(dataclasses.replace(
+        small, audio=dataclasses.replace(small.audio, num_hidden_layers=ACADEMIC_LAYERS),
+        text=dataclasses.replace(small.text, num_hidden_layers=ACADEMIC_LAYERS)))
+    dcfg = distill.DistillConfig(feature_match_weight=0.1)
+    tcfg = TrainConfig(grad_clip=1.0)
+    student = mdl.init_model(student_cfg, torch.Generator().manual_seed(4), "cpu")
+    student["distill_proj"] = {"kernel": 0.05 * torch.randn(
+        student_cfg.proj_dim, cut.proj_dim, generator=torch.Generator().manual_seed(5)),
+        "bias": torch.zeros(cut.proj_dim)}
+    torch_batch = {k: torch.from_numpy(v) for k, v in batch.items() if k != "example_mask"}
+    opt = opt_lib.make_train_optimizer(student, lr=TRAIN_LR, total_steps=4,
+                                       freeze_backbones=False, grad_clip=1.0)
+    runs = {}
+    for dev, teacher in (("cpu", cpu_params), ("cuda", card_params)):
+        params = cloned(tree_to(student, dev))
+        dev_batch = {k: v.to(dev) for k, v in torch_batch.items()}
+        loss, grads = loss_and_grads(torch, opt, params, lambda view: distill.distill_loss(
+            view, teacher, dev_batch, torch.Generator(device=dev), teacher_cfg=f32,
+            student_cfg=student_cfg, tcfg=tcfg, dcfg=dcfg)[0])
+        step = distill.make_distill_step(f32, student_cfg, tcfg, dcfg, opt, device=dev)
+        metrics = step(params, teacher, opt.init(params), torch_batch, 0)
+        runs[dev] = {"loss": loss, "grads": grads, "params": params, "metrics": metrics}
+    for k, v in runs["cpu"]["metrics"].items():
+        errs[f"distill step {k}"] = check_close(f"distill step {k} card vs CPU",
+                                                runs["cuda"]["metrics"][k].cpu(), v, TRAIN_TOL)
+    errs.update({f"distill step {k}": v for k, v in step_card_against_cpu(
+        torch, opt, opt.init(student), runs["cuda"], runs["cpu"]).items()})
+    return errs
+
+
+def loss_and_grads(torch, opt, params: dict, loss_of):
+    """(loss, {path: gradient}) of loss_of(view) at the optimizer's trained
+    leaves of `params`, through detached aliases."""
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.utils.runtime import (
+        map_leaves)
+    alias = {p: t.detach().requires_grad_(True) for p, t in opt.trainable(params)}
+    loss = loss_of(map_leaves(params, lambda p, t: alias.get(p, t)))
+    grads = torch.autograd.grad(loss, list(alias.values()), allow_unused=True,
+                                materialize_grads=True)
+    return loss.detach(), dict(zip(alias, grads))
+
+
+def step_card_against_cpu(torch, opt, state: dict, card: dict, cpu: dict) -> dict:
+    """One AdamW step of `opt` taken on the card and on the CPU from the
+    same parameters and optimizer `state` (on the CPU, as it was before the
+    step); `card` and `cpu` hold each device's loss, gradients
+    (`loss_and_grads`) and parameters after the step. The loss and the
+    gradients are held within TRAIN_TOL. Each parameter is held within
+    TRAIN_TOL plus lr |u(g_card) - u(g_cpu)|, u the step's direction
+    m_hat / (sqrt(v_hat) + eps) from `state`'s moments, in f64: what the
+    optimizer's own arithmetic makes of the gradients' rounding. That term
+    is about 2 lr where a gradient that is zero but for rounding (the
+    attention key biases, which the softmax cancels) flips its sign, and
+    under TRAIN_TOL where the gradients agree. Returns the errors and the
+    count of elements where the term exceeds TRAIN_TOL."""
+    errs = {"loss": check_close("loss card vs CPU", card["loss"].cpu(), cpu["loss"], TRAIN_TOL),
+            "grads": max(check_close(f"grad {p} card vs CPU", card["grads"][p].cpu(), g,
+                                     TRAIN_TOL) for p, g in cpu["grads"].items())}
+    count = int(state["count"])
+
+    def direction(grads: dict) -> dict:
+        g = {p: t.detach().cpu().double() for p, t in grads.items()}
+        if opt.grad_clip is not None:
+            norm = torch.stack([t.square().sum() for t in g.values()]).sum().sqrt()
+            g = {p: t * min(1.0, opt.grad_clip / float(norm)) for p, t in g.items()}
+        out = {}
+        for p, t in g.items():
+            m = opt.b1 * state["mu"][p].double() + (1 - opt.b1) * t
+            v = opt.b2 * state["nu"][p].double() + (1 - opt.b2) * t * t
+            out[p] = (m / (1 - opt.b1 ** (count + 1))
+                      / ((v / (1 - opt.b2 ** (count + 1))).sqrt() + opt.eps))
+        return out
+
+    u_card, u_cpu = direction(card["grads"]), direction(cpu["grads"])
+    card_leaves = dict(tree_leaves(card["params"]))
+    worst, moved, elements = 0.0, 0, 0
+    for p, want in tree_leaves(cpu["params"]):
+        got = card_leaves[p].cpu()
+        tol = TRAIN_TOL * (1 + want.abs())
+        if p in u_cpu:
+            lr = float(opt.schedules[opt.labels[p]](count))
+            term = lr * (u_card[p] - u_cpu[p]).abs()
+            moved += int((term > TRAIN_TOL).sum())
+            elements += want.numel()
+            tol = tol + term.float()
+        diff = (got - want).abs()
+        if not bool((diff <= tol).all()):
+            raise AssertionError(f"param {p} card vs CPU after the step: max |got - want| "
+                                 f"{float(diff.max())} over its tolerance")
+        worst = max(worst, float(diff.max()))
+    errs.update({"params": worst, "trained_elements": elements,
+                 "elements_rounding_moves_over_tol": moved})
+    return errs
+
+
+def academic_phases(torch, wrappers, smi: str, cfg, work: Path) -> int:
+    """Phase 10 (see the module docstring) on phase 5d's full-width
+    checkpoint. Returns A1's launches on the paths it drives (the
+    academic_eval CLI's eval forwards, the distill CLI's teacher forwards
+    and student validation, the eval CLI's steps)."""
+    import copy
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.cli import (
+        academic_eval as academic_cli, distill as distill_cli, eval as eval_cli,
+        fit_cascade as fit_cli)
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.config import DataConfig
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.data import (
+        pipeline, tokenizer)
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.eval import few_shot
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.ops import (
+        residual_stack as rs)
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.train import distill
+    t_start = time.perf_counter()
+    a1 = 0
+
+    # 10a. A1 at the slice's classifier shapes against its plain version
+    num_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    errs, plans, timing = {}, {}, {}
+    reset_counts(wrappers)
+    for (L, D), batches in A1_SLICE_SHAPES.items():
+        for B in batches:
+            stacked, x = residual_stack_inputs(torch, B, L, D, seed=B + D)
+            got = rs.residual_stack(stacked, x)
+            want = rs.residual_stack_plain(stacked, x)
+            torch.cuda.synchronize()
+            label = f"L={L} D={D} B={B}"
+            errs[label] = check_close(f"residual_stack {label}", got, want, KERNEL_TOL)
+            p = rs.plan(B, L, D, num_sms)
+            plans[label] = {"blocks": p.blocks, "rows": p.rows, "col_width": p.col_width,
+                            "col_groups": p.col_groups, "row_blocks": p.row_blocks,
+                            "ring_depth": p.depth, "smem_bytes": p.smem_bytes}
+            bound_ms, bound_by = residual_stack_bound(B, L, D)
+            ms = cuda_ms(lambda: rs.residual_stack(stacked, x), 50)
+            timing[label] = {"ms": ms,
+                             "plain_ms": cuda_ms(lambda: rs.residual_stack_plain(stacked, x), 10),
+                             "bound_ms": bound_ms, "bound_by": bound_by,
+                             "ms_over_bound": ms / bound_ms}
+    compared = counts(wrappers)["residual_stack"]
+    if compared < sum(map(len, A1_SLICE_SHAPES.values())):
+        raise AssertionError(f"10a: residual_stack launched {compared} times")
+    emit({"phase": "kernel", "name": "residual_stack", "shapes": "slice", "card": smi,
+          "tol": KERNEL_TOL, "max_abs_err": errs, "plan": plans, "timing": timing})
+
+    # 10b. card against CPU at ACADEMIC_LAYERS layers, full width
+    t0 = time.perf_counter()
+    agree = academic_card_against_cpu(torch, cfg, work)
+    emit({"phase": "agree", "path": "academic parts and distill step",
+          "layers": ACADEMIC_LAYERS, "tol": {"logits": AGREE_TOL["bfloat16"],
+                                             "noise": VIEW_TOL, "train": TRAIN_TOL},
+          "max_abs_diff": agree, "seconds": time.perf_counter() - t0})
+    torch.cuda.empty_cache()
+
+    # 10c. the academic_eval CLI on 48 clips whose texts the code-mixing
+    # and zero-shot tables change, on phase 5d's checkpoint
+    root = work / "academic"
+    manifest = write_manifest_clips(root, MANIFEST_CLIPS, seed=10, texts=ACADEMIC_TEXTS)
+    datasets = str(root / "datasets")
+    tok = tokenizer.get_tokenizer(vocab_size=cfg.text.vocab_size)
+    ds = pipeline.SERDataset(manifest, DataConfig(dataset_root=datasets))
+    steps = pipeline.BucketedLoader(ds, batch_size=8, tokenizer=tok,
+                                    shuffle=False).batches_per_epoch()
+    few_shot_steps = 0
+    for k in (8, 16):
+        _, eval_idx = few_shot.select_shots(len(ds), k)
+        sub = copy.copy(ds)
+        sub.items = [ds.items[i] for i in eval_idx]
+        few_shot_steps += pipeline.BucketedLoader(sub, batch_size=4, tokenizer=tok,
+                                                  shuffle=False).batches_per_epoch()
+    # eval passes over the manifest: baseline, open set, 3 noise types x 2
+    # SNRs, 2 code-mix languages x 5 ratios, 3 zero-shot languages; the
+    # benchmark's 3 batch sizes x (2 + 5) calls; the few-shot evaluations
+    want_a1 = (2 + 3 * 2 + 2 * 5 + 3) * steps + 3 * 7 + few_shot_steps
+    out_dir = work / "academic_out"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(wrappers)
+    t0 = time.perf_counter()
+    res = academic_cli.main(["--checkpoint", str(work / "checkpoint"), "--manifest", manifest,
+                             "--dataset_root", datasets, "--output_dir", str(out_dir),
+                             "--batch_size", "8", *ACADEMIC_ARGS])
+    academic_s = time.perf_counter() - t0
+    count = counts(wrappers)
+    peak = torch.cuda.max_memory_allocated()
+    saved = json.loads((out_dir / "academic_evaluation.json").read_text())
+    missing = [part for part in ACADEMIC_PARTS if part not in saved]
+    if missing or not (out_dir / "academic_report.txt").exists():
+        raise AssertionError(f"academic_eval: parts {missing} missing from its JSON")
+    if count["residual_stack"] != want_a1:
+        raise AssertionError(f"academic_eval: residual_stack launched {count['residual_stack']} "
+                             f"times, not once in each of its {want_a1} eval forwards")
+    if (res["baseline"]["num_samples"] != MANIFEST_CLIPS
+            or [r["num_shots"] for r in res["few_shot"]] != [8, 16]
+            or set(res["zero_shot"]["per_language"]) != {"en", "hi", "bn", "te"}):
+        raise AssertionError(f"academic_eval: {res['baseline']['num_samples']} samples, shots "
+                             f"{[r['num_shots'] for r in res['few_shot']]}")
+    a1 += count["residual_stack"]
+    bench = res["inference_benchmark"]
+    emit({"phase": "path", "path": "academic_eval CLI (the 8-part battery)", "card": smi,
+          "clips": MANIFEST_CLIPS, "batch_size": 8, "args": " ".join(ACADEMIC_ARGS),
+          "cli_s": academic_s, "part_seconds": res["part_seconds"],
+          "parts": [part for part in ACADEMIC_PARTS if part in saved],
+          "weighted_f1": res["baseline"]["weighted_f1"],
+          "benchmark_ms": {b: e["latency_p50_ms"] for b, e in bench["per_batch_size"].items()},
+          "benchmark_device_peak_bytes": {b: e.get("device_peak_bytes")
+                                          for b, e in bench["per_batch_size"].items()},
+          "params": bench["params"], "max_memory_allocated": peak, "launches": count,
+          "eval_steps_per_pass": steps, "few_shot_eval_steps": few_shot_steps})
+    del res
+    torch.cuda.empty_cache()
+
+    # 10d. distil the flagship into a 'small' student, score both, fit the
+    # cascade; a CUDA event after each step that make_distill_step returns
+    # (and one when it is made) times the steps without reading the card
+    student_dir = work / "student"
+    make_step, marks = distill.make_distill_step, []
+
+    def mark():
+        marks.append(torch.cuda.Event(enable_timing=True))
+        marks[-1].record()
+
+    def timed_make_step(*args, **kwargs):
+        step = make_step(*args, **kwargs)
+
+        def timed_step(*step_args):
+            metrics = step(*step_args)
+            mark()
+            return metrics
+
+        mark()
+        return timed_step
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(wrappers)
+    distill.make_distill_step = timed_make_step
+    t0 = time.perf_counter()
+    try:
+        res = distill_cli.main(["--teacher_checkpoint", str(work / "checkpoint"),
+                                "--train_manifest", manifest, "--val_manifest", manifest,
+                                "--student_preset", "small", "--epochs", "1", "--batch_size",
+                                "8", "--dataset_root", datasets, "--save_dir", str(student_dir)])
+    finally:
+        distill.make_distill_step = make_step
+    distill_s = time.perf_counter() - t0
+    count = counts(wrappers)
+    peak = torch.cuda.max_memory_allocated()
+    train_steps = pipeline.BucketedLoader(ds, batch_size=8, tokenizer=tok, shuffle=True,
+                                          drop_remainder=True).batches_per_epoch()
+    marks[-1].synchronize()
+    step_ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    if len(step_ms) != train_steps or count["residual_stack"] != train_steps + steps:
+        raise AssertionError(f"distill CLI: {len(step_ms)} steps, residual_stack launched "
+                             f"{count['residual_stack']} times, not {train_steps} teacher "
+                             f"forwards + {steps} validation steps")
+    if not all(np.isfinite(v) for v in res["history"][0].values()):
+        raise AssertionError(f"distill CLI: {res['history'][0]}")
+    a1 += count["residual_stack"]
+    warm = sorted(step_ms[1:])
+    emit({"phase": "path", "path": "distill CLI (flagship -> small, 1 epoch, batch 8)",
+          "card": smi, "cli_s": distill_s, "epoch_s": res["history"][0]["epoch_seconds"],
+          "step_ms": {"first": step_ms[0], "median_after_first": warm[len(warm) // 2],
+                      "all": step_ms},
+          "history": res["history"], "max_memory_allocated": peak, "launches": count,
+          "student_classifier": {"L": 8, "D": 256}})
+    best = res["best_path"]
+    del res
+    torch.cuda.empty_cache()
+
+    predictions, eval_s = {}, {}
+    for tier, checkpoint in (("student", best), ("teacher", str(work / "checkpoint"))):
+        predictions[tier] = str(work / f"{tier}_predictions.jsonl")
+        reset_counts(wrappers)
+        t0 = time.perf_counter()
+        res = eval_cli.main(["--manifest", manifest, "--checkpoint", checkpoint,
+                             "--dataset_root", datasets, "--batch_size", "8",
+                             "--predictions_out", predictions[tier]])
+        eval_s[tier] = time.perf_counter() - t0
+        n = counts(wrappers)["residual_stack"]
+        if n != len(res["step_seconds"]) or res["logits"].shape != (MANIFEST_CLIPS,
+                                                                    cfg.num_labels):
+            raise AssertionError(f"eval CLI on the {tier}: logits {res['logits'].shape}, "
+                                 f"{n} launches in {len(res['step_seconds'])} steps")
+        a1 += n
+        del res
+    t0 = time.perf_counter()
+    fit = fit_cli.main(["--student_predictions", predictions["student"],
+                        "--teacher_predictions", predictions["teacher"],
+                        "--escalation_budget", str(CASCADE_BUDGET),
+                        "--out", str(work / "cascade.json")])
+    fit_s = time.perf_counter() - t0
+    if not 0.0 <= fit["escalation_rate"] <= CASCADE_BUDGET or fit["n"] != MANIFEST_CLIPS:
+        raise AssertionError(f"fit_cascade: {fit}")
+    emit({"phase": "path", "path": "cascade: eval CLI on student and teacher, fit_cascade CLI",
+          "card": smi, "eval_cli_s": eval_s, "fit_cascade_s": fit_s, "fit": fit})
+    emit({"phase": "path", "path": "evaluation suite (phase 10)",
+          "seconds": time.perf_counter() - t_start, "residual_stack_launches": a1})
+    return a1
+
+
 def reset_counts(wrappers) -> None:
     for w in wrappers.values():
         w.launches = 0
@@ -2556,6 +2950,7 @@ def main() -> int:
             launches[kname] += n
         launches["residual_stack"] += int8_asr_phases(torch, wrappers, smi, cfg, work,
                                                        manifest)
+        launches["residual_stack"] += academic_phases(torch, wrappers, smi, cfg, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()

@@ -34,6 +34,7 @@ import collections
 import json
 import math
 import queue
+import socket
 import threading
 import time
 from dataclasses import dataclass, field
@@ -522,6 +523,10 @@ def make_http_server(core: BatchingServer, host: str = "127.0.0.1",
     class DrainableServer(ThreadingHTTPServer):
         # keep daemon_threads=True so a handler wedged on a dead client
         # socket can never block process exit; drain via wait_inflight.
+        # socketserver's listen backlog is 5: when more clients than that
+        # connect at once (urllib opens a connection a request), the ones
+        # over it are reset before accept() takes them
+        request_queue_size = socket.SOMAXCONN
         def __init__(self, *a, **kw):
             super().__init__(*a, **kw)
             self._inflight = 0

@@ -135,18 +135,22 @@ def param_labels(params: dict, *, freeze_backbones: bool = True) -> dict:
 
 class AdamW:
     """AdamW with a schedule and a weight decay per group (see the module
-    docstring). `labels` is `param_labels` of the tree it steps."""
+    docstring). `labels` is `param_labels` of the tree it steps; `groups`
+    maps each group name to its (lr multiplier, weight decay), GROUPS by
+    default (the multiplier is the schedules' to apply)."""
 
     def __init__(self, labels: dict, schedules: Dict[str, Callable[[Step], Tensor]], *,
                  grad_clip: Optional[float] = None,
                  backbone_moment_dtype: Optional[torch.dtype] = None,
-                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                 groups: Dict[str, Tuple[float, float]] = GROUPS):
         self.labels = dict(leaves_with_paths(labels))
         self.schedules = schedules
         self.grad_clip = grad_clip
+        self.groups = groups
         self.mu_dtypes = {g: (backbone_moment_dtype if backbone_moment_dtype is not None
                               and g in ("audio", "text") else torch.float32)
-                          for g in GROUPS}
+                          for g in groups}
         self.b1, self.b2, self.eps = b1, b2, eps
 
     def trainable(self, params: dict) -> List[Tuple[str, Tensor]]:
@@ -195,7 +199,7 @@ class AdamW:
         step_inc = count.to(torch.float32) + 1.0
         bc1 = 1.0 - torch.pow(self.b1, step_inc)
         bc2 = 1.0 - torch.pow(self.b2, step_inc)
-        for group, (_, wd) in GROUPS.items():
+        for group, (_, wd) in self.groups.items():
             pairs = [(p, t) for p, t in trainable if self.labels[p] == group]
             if not pairs:
                 continue

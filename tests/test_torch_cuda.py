@@ -44,16 +44,17 @@ def _perturbed_stack(device, L, D, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("L,D", [(35, 512), (3, 32), (2, 768), (2, 1500)])
+@pytest.mark.parametrize("L,D", [(35, 512), (3, 32), (2, 768), (2, 1500), (8, 256), (3, 64)])
 def test_residual_stack_kernel_matches_plain(cuda, L, D):
     """B=300 and 640 have more row groups than the grid has row blocks, so
-    blocks loop over several of them; 20, 40 and 640 are the TTA step's
+    blocks loop over several of them; 8 is the CLIs' batch (the eval, the
+    academic battery and distillation); 20, 40 and 640 are the TTA step's
     rows at B=4, 8 and 128 (20 ends on a partial row group); D=1500 takes
     two tensor copies per strip plane and leaves the last column group
     ragged."""
     stacked, x = _perturbed_stack(cuda, L, D, seed=D)
     before = rs.residual_stack.launches
-    batches = (1, 4, 11, 20, 40, 128, 300, 640)
+    batches = (1, 4, 8, 11, 20, 40, 128, 300, 640)
     for B in batches:
         got = rs.residual_stack(stacked, x[:B].contiguous())
         want = rs.residual_stack_plain(stacked, x[:B])
@@ -948,3 +949,68 @@ def test_whisper_decode_on_the_card_matches_the_cpu(cuda, int8):
         torch.backends.cuda.matmul.allow_tf32 = tf32
     assert torch.equal(got_t.cpu(), want_t)
     torch.testing.assert_close(got_c.cpu(), want_c, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("noise_type", ["gaussian", "babble", "music"])
+def test_add_noise_at_snr_on_the_card_matches_the_cpu(cuda, noise_type):
+    """eval/robustness.add_noise_at_snr on 4 s rows, two padded: the sines'
+    phases and the SNR scaling in f32 on both devices, the gaussian case fed
+    one standard-normal draw; within 1e-5 (f32 summation order)."""
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.eval import robustness
+    rng = np.random.default_rng(2)
+    mask = np.ones((4, 64000), np.float32)
+    mask[1, 40000:] = 0
+    mask[3, 9000:] = 0
+    wave = torch.from_numpy((0.3 * rng.standard_normal((4, 64000))).astype(np.float32) * mask)
+    mask = torch.from_numpy(mask)
+    draw = torch.from_numpy(rng.standard_normal((4, 64000)).astype(np.float32))
+    for snr in (20.0, 0.0):
+        want = robustness.add_noise_at_snr(wave, mask, snr, noise_type=noise_type, noise=draw)
+        got = robustness.add_noise_at_snr(wave.to(cuda), mask.to(cuda), snr,
+                                          noise_type=noise_type, noise=draw.to(cuda))
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_few_shot_adapt_on_the_card_matches_the_cpu(cuda):
+    """eval/few_shot.adapt over two batches of a dropout-free tiny model on
+    the card and on the CPU from the same parameters: the trained leaves
+    within TOL (f32, TF32 off), the frozen leaves and the base unchanged."""
+    import dataclasses
+
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.eval import few_shot
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.models import model as tm
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.utils import runtime
+    cfg = _tiny_eval_config().model
+    cfg = dataclasses.replace(
+        cfg, frontend_dsp=False, use_quality_gates=False, use_audio_conditioning=False,
+        classifier_dropout=0.0, cross_dropout=0.0, fusion_dropout=0.0, anchor_dropout=0.0,
+        audio=dataclasses.replace(cfg.audio, hidden_dropout=0.0, attention_dropout=0.0,
+                                  activation_dropout=0.0, apply_spec_augment=False),
+        text=dataclasses.replace(cfg.text, hidden_dropout=0.0, attention_dropout=0.0))
+    base = tm.init_model(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(3)
+    batches = [{"audio": rng.standard_normal((4, 1600)).astype(np.float32),
+                "audio_mask": np.ones((4, 1600), np.float32),
+                "text_ids": rng.integers(2, 100, (4, 10)).astype(np.int32),
+                "text_mask": np.ones((4, 10), np.float32),
+                "labels": np.array([0, 1, 2, 3], np.int32),
+                "example_mask": np.array([1, 1, 1, i == 0], np.float32)} for i in range(2)]
+    want = few_shot.adapt(base, cfg, lambda: batches, num_epochs=1, lr=1e-3)
+    card_base = runtime.tree_to(base, cuda)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            got = few_shot.adapt(card_base, cfg, lambda: batches, num_epochs=1, lr=1e-3)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    before = dict(runtime.leaves_with_paths(base))
+    card_before = dict(runtime.leaves_with_paths(card_base))
+    for path, t in runtime.leaves_with_paths(got):
+        torch.testing.assert_close(t.cpu(), dict(runtime.leaves_with_paths(want))[path],
+                                   rtol=TOL, atol=TOL, msg=path)
+        if path.split("/")[0] not in few_shot.TRAINABLE:
+            assert torch.equal(t.cpu(), before[path]), path
+        assert torch.equal(card_before[path].cpu(), before[path]), path

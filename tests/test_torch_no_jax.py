@@ -43,5 +43,8 @@ def test_port_imports_without_jax():
                    "research.dual_gate_ood", "cli.export", "cli.serve", "cli.infer",
                    "models.hf_convert", "models.ref_convert", "cli.import_checkpoint",
                    "cli.export_torch", "cli.make_manifest", "ops.quant", "models.whisper",
-                   "frontend.asr"):
+                   "frontend.asr", "eval.calibration", "eval.openset", "eval.slicing",
+                   "eval.wer", "eval.cascade", "eval.enhanced_pipeline", "eval.zero_shot",
+                   "eval.benchmark", "eval.robustness", "eval.few_shot", "eval.academic",
+                   "train.distill", "cli.academic_eval", "cli.fit_cascade", "cli.distill"):
         assert port + module in report["imported"]

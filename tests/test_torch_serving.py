@@ -288,6 +288,30 @@ def test_http_bad_request_and_unknown_path(http_server):
     assert err.value.code == 404
 
 
+def test_http_burst_of_new_connections_is_not_reset(http_server):
+    """64 clients at once, each POST on a new connection (as urllib makes
+    them; a request without audio, answered 400 at once): with
+    socketserver's default listen backlog of 5 some of them are reset
+    before the server accepts them."""
+    failures = []
+
+    def client():
+        for _ in range(40):
+            try:
+                code, _ = _post(http_server, {"text": "no audio key"})
+                assert code == 400
+            except OSError as e:
+                failures.append(f"{type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=client) for _ in range(64)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=120)
+    assert not any(th.is_alive() for th in threads)
+    assert failures == []
+
+
 # ------------------------------------------------------- vocab mismatch
 
 def test_mismatched_tokenizer_rejected_at_startup(bucketed_artifact):

@@ -47,6 +47,18 @@ def perturb(tree, rng, scale=0.1):
                    ).astype(np.asarray(a).dtype), tree)
 
 
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """One intra-op thread for a module of tiny-model tests: their many small
+    ops gain nothing from a thread pool, and the suite's parallel workers
+    share the host's cores, where each op's pool would wait on the others.
+    The count is restored after the module."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture
 def offline_hub(monkeypatch):
     """Hugging Face hub lookups fail at once (HF_HUB_OFFLINE, also where the
