@@ -171,6 +171,31 @@ Phases, one JSON line each:
                 once a teacher forward and a validation step; the eval CLI
                 --predictions_out on the student and on the teacher; the
                 `fit_cascade` CLI at an escalation budget of 0.15
+  11. rest   the last slice's modules, through the entry points a user calls:
+              - 11a. the confidence fusion, cross-lingual and loss-integration
+                functions and the legacy heads, card against CPU from the
+                same inputs (f32, AGREE_TOL), gradient_reversal's gradient
+                on the card among them;
+              - 11b. `profiling.trace` around one flagship eval forward at
+                B=4: the Chrome trace names A1's kernel, the forward's ms
+                and the kernels' device ms (the events on the card alone);
+                `device_memory_stats`' keys against the allocator's own
+                counters; `debug.checked` raising on a NaN fed to the card;
+              - 11c. a one-rank NCCL group from torchrun's environment
+                (`multihost.initialize`, mesh (1, 1)): the flagship frozen
+                train step through `shard_params(fsdp=True,
+                fsdp_min_size=1)` and `shard_batch` (of a batch from
+                `device_prefetch`, as the loop takes it) against the unsharded
+                step from the same state (TRAIN_TOL), the ms of both (the
+                difference is DTensor's host cost); the ring and pipeline
+                stacks (P=1, M=4) at wav2vec2-base width, 4 s clips, B=8,
+                bf16, against the dense `_encoder_stack` (AGREE_TOL);
+              - 11d. the train CLI under the pod branch with world 1, --fsdp,
+                on phase 5d's manifest, 1 epoch, batch 8: seconds, the
+                checkpoint rank 0 wrote, A1's launches (its validation and
+                Weibull passes)
+              With more than one card the script says that 11c-d ran with
+              world 1 only.
 Then the script's wall time, the `kernels` line and, last,
 {"ok": true, "device": {...}}.
 
@@ -280,6 +305,8 @@ ACADEMIC_PARTS = ("baseline", "cross_lingual", "calibration", "asr_tracking", "r
                   "open_set", "inference_benchmark", "per_snr", "few_shot", "robustness",
                   "zero_shot", "per_class_accuracy", "confusion_matrix", "part_seconds")
 CASCADE_BUDGET = 0.15
+STACK_B = 8          # 11c's ring and pipeline stacks: B=8, 4 s clips, wav2vec2-base width
+STACK_TOL = 2e-4     # ring / pipeline vs dense in f32 (the JAX package's ring test: 2e-4)
 SOURCE = "multilingual_multimodal_speech_emotion_recognition_tpu_torch/csrc/{}.cu"
 REPLACES = "multilingual_multimodal_speech_emotion_recognition_tpu/ops/pallas_kernels.py:{}"
 
@@ -2420,6 +2447,319 @@ def academic_phases(torch, wrappers, smi: str, cfg, work: Path) -> int:
     return a1
 
 
+def research_card_against_cpu(torch) -> dict:
+    """11a: the confidence fusion, cross-lingual and loss-integration
+    functions and the legacy heads, on the card against the CPU from the
+    same inputs and parameters (made on the CPU, copied), f32. The
+    gradient of the cross-lingual total through gradient_reversal and the
+    language head is held too. Returns the errors."""
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.models import (
+        classifier as cls, layers)
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.research import (
+        confidence_fusion as cf, cross_lingual as cl, loss_integration as li)
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.utils.runtime import (
+        tree_to)
+    rng = np.random.default_rng(21)
+    B, A, X, F = 8, 768, 768, 256
+    raw = rng.random((14, B)).astype(np.float32)
+    raw[0] *= 30.0
+    raw[5] *= 2.5
+    audio, text = (rng.standard_normal((B, n)).astype(np.float32) for n in (A, X))
+    feats = rng.standard_normal((B, F)).astype(np.float32)
+    emo, lang = rng.integers(0, 4, B), rng.integers(0, cl.NUM_LANGUAGES, B)
+    logits = (3 * rng.standard_normal((B, 4))).astype(np.float32)
+    prev = rng.standard_normal((B, 4)).astype(np.float32)
+    conf = rng.random(B).astype(np.float32)
+    fusion = cf.init_adaptive_fusion(A, X, device="cpu")
+    head = cl.init_language_head(F, device="cpu")
+    legacy = cls.init_legacy_mlp(layers.Init(None, "cpu"), F, 4, hidden=128)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        t = lambda a: torch.from_numpy(np.array(a)).to(dev)
+        cfeats = cf.ConfidenceFeatures(*(t(r) for r in raw[:7]), t(raw[7] > 0.5),
+                                       t(raw[8] > 0.3), *(t(r) for r in raw[9:]))
+        fused, fconf, info = cf.adaptive_fusion(tree_to(fusion, dev), t(audio), t(text), cfeats)
+        f = t(feats).requires_grad_(True)
+        lang_logits = cl.language_adversarial_head(tree_to(head, dev), f, alpha=0.5)
+        losses = cl.cross_lingual_losses(t(logits), t(emo), lang_logits, t(lang),
+                                         cl.consistency_loss(f, t(emo), t(lang)))
+        (grad,) = torch.autograd.grad(losses["total_loss"], f)
+        acts, leg_logits = cls.legacy_mlp_forward(tree_to(legacy, dev), t(feats))
+        fit = cls.legacy_fit_weibull(acts, t(emo), 4)
+        om = cls.legacy_openmax_forward({**tree_to(legacy, dev), "weibull": fit}, t(feats))
+        total = li.compute_total_loss({
+            "ce_loss": losses["emotion_loss"],
+            "energy_margin_loss": li.energy_margin_loss(t(logits), t(conf > 0.7)),
+            "temporal_consistency_loss": li.temporal_consistency_loss(
+                t(logits), t(prev), t(conf), t(conf[::-1].copy())),
+            "confidence_calibration_loss": li.confidence_calibration_loss(
+                t(conf), t(emo == logits.argmax(-1)))}, epoch=120)
+        outs[dev] = {"fused": fused, "fusion_confidence": fconf, **info,
+                     "language_logits": lang_logits, "reversed_gradient": grad,
+                     **{k: v for k, v in losses.items()}, "legacy_logits": leg_logits,
+                     "legacy_openmax_logits": om, **{f"weibull_{k}": v for k, v in fit.items()},
+                     **{f"phase_{k}": v for k, v in total.items() if k != "phase"}}
+    return {k: check_close(f"11a {k} card vs CPU", v.detach().cpu(),
+                           outs["cpu"][k].detach(), AGREE_TOL["float32"])
+            for k, v in outs["cuda"].items()}
+
+
+def parallel_phases(torch, wrappers, smi: str, cfg, work: Path, manifest: str) -> int:
+    """Phase 11 (see the module docstring) on phase 5d's manifest. Returns
+    A1's launches on the paths it drives (the traced eval forward, the
+    pod-branch train CLI's validation and Weibull passes)."""
+    import os
+    import torch.distributed as dist
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.cli import (
+        train as train_cli)
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.config import (
+        DataConfig, TrainConfig)
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.data import (
+        pipeline, prefetch, tokenizer)
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.models import (
+        layers, model as mdl, wav2vec2 as w2v)
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.parallel import (
+        mesh as mesh_lib, multihost as mh, pipeline as pipe, sequence as seq)
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.train import (
+        checkpoint as ckpt, optimizer as opt_lib, train_step as ts)
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.utils import (
+        debug, profiling)
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.utils.runtime import (
+        map_leaves)
+    t_start = time.perf_counter()
+    dev = torch.device("cuda")
+
+    def step_ms(fn, warmup: int, iters: int) -> list:
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        return times
+
+    def median(ms: list) -> float:
+        return sorted(ms)[len(ms) // 2]
+
+    # 11a. research functions and legacy heads, card against CPU
+    emit({"phase": "agree", "path": "research functions and legacy heads (phase 11a)",
+          "dtype": "float32", "tol": AGREE_TOL["float32"],
+          "max_abs_diff": research_card_against_cpu(torch)})
+
+    # 11b. profiling.trace around one flagship eval forward at B=4; the
+    # memory counters; debug.checked raising on a NaN fed to the card
+    params = mdl.init_model(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in example_batch(
+        4, T=CLIP_SAMPLES, S=TEXT_TOKENS, vocab=cfg.text.vocab_size).items()}
+    with torch.inference_mode():
+        mdl.model_forward(params, cfg, batch, deterministic=True)
+        torch.cuda.synchronize()
+        reset_counts(wrappers)
+        with profiling.trace(work / "trace") as prof:
+            t0 = time.perf_counter()
+            out = mdl.model_forward(params, cfg, batch, deterministic=True)
+            profiling.sync(out.logits)
+            forward_ms = 1e3 * (time.perf_counter() - t0)
+    a1 = counts(wrappers)["residual_stack"]
+    if a1 != 1:
+        raise AssertionError(f"11b: residual_stack launched {a1} times in one forward")
+    trace_path = work / "trace" / profiling.TRACE_FILE
+    # the kernels are the events on the card; the CPU ops' self device time
+    # is their kernels' again, so they stay out of the sum (as in the
+    # profiler's own table)
+    from torch.autograd import DeviceType
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    device_us = lambda e: e.self_device_time_total
+    a1_events = [e for e in kernels if "residual_stack_kernel" in e.key]
+    if not a1_events or "residual_stack_kernel" not in trace_path.read_text():
+        raise AssertionError("11b: the trace does not name A1's kernel (residual_stack_kernel)")
+    mem = profiling.device_memory_stats()
+    allocator = torch.cuda.memory_stats()
+    for key, counter in (("bytes_in_use", "allocated_bytes.all.current"),
+                         ("peak_bytes_in_use", "allocated_bytes.all.peak")):
+        if mem[key] != allocator[counter]:
+            raise AssertionError(f"11b: {key} {mem[key]} is not the allocator's {counter} "
+                                 f"{allocator[counter]}")
+    if not 0 < mem["bytes_in_use"] <= mem["peak_bytes_in_use"] <= mem["bytes_limit"]:
+        raise AssertionError(f"11b: memory counters out of order: {mem}")
+    checked = debug.checked(lambda x: layers.linear(params["classifier"]["out_proj2"], x))
+    half = params["classifier"]["out_proj2"]["kernel"].shape[0]
+    bad = torch.full((2, half), float("nan"), device=dev)
+    try:
+        checked(bad)
+        raise AssertionError("11b: debug.checked did not raise on a NaN")
+    except FloatingPointError as e:
+        checked_message = str(e)
+    emit({"phase": "path", "path": "profiling.trace around the flagship eval forward, B=4",
+          "card": smi, "trace_bytes": trace_path.stat().st_size, "forward_ms": forward_ms,
+          "device_kernel_ms": sum(device_us(e) for e in kernels) / 1e3,
+          "a1_kernel": [e.key for e in a1_events][:1],
+          "a1_kernel_ms": sum(device_us(e) for e in a1_events) / 1e3, "launches": a1,
+          "device_memory_stats": {k: mem.get(k) for k in ("bytes_in_use", "peak_bytes_in_use",
+                                                          "bytes_limit")},
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "checked_raised": checked_message})
+    del batch, out
+
+    # 11c. a one-rank process group (torchrun's environment for one rank)
+    env = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port()), "RANK": "0",
+           "WORLD_SIZE": "1", "LOCAL_RANK": "0"}
+    saved_env = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        if not mh.initialize():
+            raise AssertionError("11c: multihost.initialize brought up no group")
+        mesh = mesh_lib.make_mesh()
+        backend = dist.get_backend()
+        if torch.cuda.device_count() > 1:
+            emit({"phase": "note", "note": f"{torch.cuda.device_count()} cards: phase 11c-d "
+                  "ran with world 1 only"})
+
+        # the flagship frozen train step, sharded (FSDP, min size 1) and not
+        tcfg = TrainConfig(batch_size=TRAIN_B, augment=True)
+        host = example_batch(TRAIN_B, T=CLIP_SAMPLES, S=TEXT_TOKENS, vocab=cfg.text.vocab_size)
+        host["labels"] = np.arange(TRAIN_B, dtype=np.int32) % cfg.num_labels
+        plain_batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+        opt = opt_lib.make_train_optimizer(params, lr=1e-4, total_steps=100)
+        plain_p = cloned(params)
+        plain_s = opt.init(plain_p)
+        sharded_p = mesh_lib.shard_params(cloned(params), mesh, fsdp=True, fsdp_min_size=1)
+        sharded_s = opt.init(sharded_p)
+        # the loop's route: device_prefetch puts the rows on the card, then
+        # shard_batch lays them over the mesh
+        (dev_batch, _), = prefetch.device_prefetch(iter([host]), dev,
+                                                   skip=pipeline.TRAIN_HOST_KEYS)
+        sharded_batch = mesh_lib.shard_batch(dev_batch, mesh)
+        plain_step = ts.make_train_step(cfg, tcfg, opt, device=dev)
+        sharded_step = ts.make_train_step(cfg, tcfg, opt, device=dev)
+        m_plain = plain_step(plain_p, plain_s, plain_batch, 0)
+        m_sharded = sharded_step(sharded_p, sharded_s, sharded_batch, 0)
+        errs = {"loss": check_close("11c sharded step loss", m_sharded.loss.cpu(),
+                                    m_plain.loss.cpu(), TRAIN_TOL)}
+        got = dict(tree_leaves(mh.host_replicated(sharded_p)))
+        errs["params"] = max(check_close(f"11c sharded step {p}", got[p].cpu(), t.cpu(),
+                                         TRAIN_TOL) for p, t in tree_leaves(plain_p))
+        # on a (1, 1) mesh a Shard placement splits nothing: the count says
+        # the moments took the parameters' layout (two ranks: the CPU tests)
+        moments = [m for m in sharded_s["mu"].values()
+                   if any(pl.is_shard() for pl in m.placements)]
+        seed = iter(range(1, 10 ** 6))
+        plain_ms = step_ms(lambda: plain_step(plain_p, plain_s, plain_batch, next(seed)),
+                           TRAIN_WARMUP, TRAIN_STEPS)
+        sharded_ms = step_ms(lambda: sharded_step(sharded_p, sharded_s, sharded_batch,
+                                                  next(seed)), TRAIN_WARMUP, TRAIN_STEPS)
+        emit({"phase": "path", "path": "train step, frozen backbones, FSDP (min size 1) on a "
+              "one-rank mesh vs unsharded", "card": smi, "backend": backend, "mesh": [1, 1],
+              "B": TRAIN_B, "seconds": CLIP_SAMPLES / SAMPLE_RATE, "text_tokens": TEXT_TOKENS,
+              "tol": TRAIN_TOL, "max_abs_diff": errs,
+              "moments_with_shard_placements": len(moments),
+              "plain_step_ms": median(plain_ms), "sharded_step_ms": median(sharded_ms),
+              "dtensor_host_ms": median(sharded_ms) - median(plain_ms),
+              "plain_step_ms_all": plain_ms, "sharded_step_ms_all": sharded_ms})
+        del plain_p, plain_s, sharded_p, sharded_s, plain_batch, sharded_batch, dev_batch, opt
+        del plain_step, sharded_step
+        torch.cuda.empty_cache()
+
+        # the ring and the pipeline (P=1, M=4) against the dense stack: in f32
+        # at the JAX package's ring tolerance; in the compute dtype (timed),
+        # each no further from the f32 dense result than twice the dense
+        # stack's own rounding, plus STACK_TOL (the ring keeps its
+        # probabilities in f32 where the dense stack casts them to bf16)
+        acfg = cfg.audio
+        dtype = getattr(torch, cfg.compute_dtype)
+        rng = np.random.default_rng(31)
+        S = CLIP_SAMPLES   # the feature extractor's frames (199 for 4 s at base width)
+        for k, stride in zip(acfg.conv_kernel, acfg.conv_stride):
+            S = (S - k) // stride + 1
+        h32 = torch.from_numpy(rng.standard_normal((STACK_B, S, acfg.hidden_size))
+                               .astype(np.float32)).to(dev)
+        lengths = np.linspace(S, S // 3, STACK_B).astype(int)
+        mask = torch.from_numpy((np.arange(S)[None, :] < lengths[:, None])
+                                .astype(np.float32)).to(dev)
+        valid = mask[..., None]
+
+        def stacks(dt):
+            stacked = map_leaves(params["audio_backbone"]["layers"], lambda _, t: t.to(dt))
+            h = h32.to(dt)
+            return {"dense": lambda: w2v._encoder_stack(stacked, acfg, h,
+                                                         layers.key_mask_bias(mask)),
+                    "ring": lambda: seq.encoder_stack_sequence_parallel(stacked, acfg, h, mask,
+                                                                        mesh),
+                    "pipeline": lambda: pipe.encoder_stack_pipeline(stacked, acfg, h, mask, mesh,
+                                                                    num_microbatches=4)}
+
+        with torch.no_grad():
+            f32 = stacks(torch.float32)
+            want = f32["dense"]() * valid
+            f32_errs = {name: check_close(f"11c {name} stack vs dense, f32",
+                                          f32[name]() * valid, want, STACK_TOL)
+                        for name in ("ring", "pipeline")}
+            del f32
+            low = stacks(dtype)
+            low_errs = {name: float((fn().float() * valid - want).abs().max())
+                        for name, fn in low.items()}
+            for name in ("ring", "pipeline"):
+                if low_errs[name] > 2 * low_errs["dense"] + STACK_TOL:
+                    raise AssertionError(f"11c {name} stack in {cfg.compute_dtype}: "
+                                         f"{low_errs[name]} from the f32 result, the dense "
+                                         f"stack {low_errs['dense']}")
+            stack_ms = {name: median(step_ms(fn, 1, 5)) for name, fn in low.items()}
+            del low
+        emit({"phase": "path", "path": "ring and pipeline stacks (P=1, M=4) vs the dense "
+              "stack", "card": smi, "B": STACK_B, "S": S, "E": acfg.hidden_size,
+              "layers": acfg.num_hidden_layers, "f32_tol": STACK_TOL,
+              "f32_max_abs_diff": f32_errs, "dtype": cfg.compute_dtype,
+              "max_abs_diff_from_f32_dense": low_errs, "ms": stack_ms})
+        del params, h32
+        torch.cuda.empty_cache()
+
+        # 11d. the train CLI under the pod branch (world 1) on phase 5d's clips
+        save_dir = work / "pod_train"
+        datasets = str(work / "datasets")
+        args = ["--train_manifest", manifest, "--val_manifest", manifest, "--epochs", "1",
+                "--batch_size", "8", "--use_amp", "--fsdp", "--save_dir", str(save_dir),
+                "--dataset_root", datasets]
+        val_steps = pipeline.BucketedLoader(
+            pipeline.SERDataset(manifest, DataConfig(dataset_root=datasets)), batch_size=8,
+            tokenizer=tokenizer.get_tokenizer(vocab_size=cfg.text.vocab_size),
+            shuffle=False).batches_per_epoch()
+        reset_counts(wrappers)
+        t0 = time.perf_counter()
+        res = train_cli.main(args)
+        cli_s = time.perf_counter() - t0
+        count = counts(wrappers)
+        written = sorted(d.name for d in save_dir.glob("epoch_*"))
+        if len(written) != 1 or not (save_dir / written[0] / ckpt.OPT_STATE_FILE).exists():
+            raise AssertionError(f"11d: rank 0 wrote {written}")
+        saved = json.loads((save_dir / written[0] / "config.json").read_text())
+        if not saved["mesh"]["fsdp"] or count["residual_stack"] != 2 * val_steps:
+            raise AssertionError(f"11d: mesh {saved['mesh']}, residual_stack launched "
+                                 f"{count['residual_stack']} times, not 2 passes x "
+                                 f"{val_steps} steps")
+        a1 += count["residual_stack"]
+        emit({"phase": "path", "path": "train CLI under the pod branch (world 1, --fsdp, "
+              "1 epoch, batch 8, --use_amp)", "card": smi, "backend": backend,
+              "cli_s": cli_s, "epoch_s": res["history"][0]["seconds"],
+              "val_f1": res["history"][0]["val_f1"], "checkpoint": written[0],
+              "written_by": "rank 0", "val_steps": val_steps, "launches": count})
+        del res
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    emit({"phase": "path", "path": "research, utils and parallelism (phase 11)",
+          "seconds": time.perf_counter() - t_start, "residual_stack_launches": a1})
+    return a1
+
+
 def reset_counts(wrappers) -> None:
     for w in wrappers.values():
         w.launches = 0
@@ -2951,6 +3291,7 @@ def main() -> int:
         launches["residual_stack"] += int8_asr_phases(torch, wrappers, smi, cfg, work,
                                                        manifest)
         launches["residual_stack"] += academic_phases(torch, wrappers, smi, cfg, work)
+        launches["residual_stack"] += parallel_phases(torch, wrappers, smi, cfg, work, manifest)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()

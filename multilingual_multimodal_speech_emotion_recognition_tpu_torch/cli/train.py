@@ -8,8 +8,22 @@ The flags and presets (default, crema_m3, crema_final) are those of the
 repo's cli/train.py, and they build the same Config, with `--device`
 (default cuda) in place of `--platform`. `--prng_impl` selects JAX's
 random-number backend and has no counterpart here: the port's draws come
-from torch generators seeded by `--seed`. Flags whose modules are not
-ported yet exit with the ROADMAP item that ports them. `--audio_backbone`
+from torch generators seeded by `--seed`.
+
+One process per card: under torchrun (RANK, WORLD_SIZE, LOCAL_RANK,
+MASTER_ADDR, MASTER_PORT) or with --coordinator_address, --num_processes
+and --process_id, each process brings up the process group (NCCL on its
+card; gloo with `--device cpu`) and trains its share of the global
+--batch_size on the mesh of --mesh_dcn, with --fsdp (--fsdp_min_size)
+sharding the parameters, gradients and AdamW moments over 'data'; rank 0
+writes the checkpoints and metrics. --mesh_model above 1 exits: the port's
+'model' axis shards storage, not the matmuls (ROADMAP item 16's rest):
+
+    torchrun --nproc_per_node=8 -m \
+        multilingual_multimodal_speech_emotion_recognition_tpu_torch.cli.train \
+        --train_manifest train.jsonl --val_manifest val.jsonl --batch_size 128 --fsdp
+
+`--audio_backbone`
 picks a preset of config.AUDIO_BACKBONE_PRESETS; `--wav2vec2_checkpoint`
 and `--xlmr_checkpoint` load Hugging Face backbones (a model directory or
 hub name, through transformers, which only these flags need). Checkpoints go to
@@ -76,10 +90,17 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                         "replace the text backbone's")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to run on (default cuda; cpu for tiny models)")
-    p.add_argument("--mesh_model", type=int, default=1, help="not ported yet")
-    p.add_argument("--mesh_dcn", type=int, default=1, help="not ported yet")
-    p.add_argument("--fsdp", action="store_true", help="not ported yet")
-    p.add_argument("--fsdp_min_size", type=int, default=None, help="not ported yet")
+    p.add_argument("--mesh_model", type=int, default=1,
+                   help="'model' mesh axis size; only 1 for now: the port's 'model' "
+                        "axis shards storage, not the matmuls (ROADMAP item 16's rest)")
+    p.add_argument("--mesh_dcn", type=int, default=1,
+                   help="number of hosts (slices) folded slice-major into 'data'")
+    p.add_argument("--fsdp", action="store_true",
+                   help="ZeRO: parameters, gradients and AdamW moments sharded over "
+                        "'data' (parallel/mesh.param_shardings)")
+    p.add_argument("--fsdp_min_size", type=int, default=None,
+                   help="leaves with fewer elements replicate under --fsdp "
+                        "(default parallel/mesh.FSDP_MIN_SIZE = 32768)")
     p.add_argument("--autotune_buckets", type=int, default=None,
                    help="replace the default audio buckets with N caps that minimise "
                         "the train manifest's padded samples (data/bucketing.py)")
@@ -91,24 +112,12 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                         "consistency-augmentation CE)")
     p.add_argument("--two_phase", action="store_true",
                    help="phase 1 frozen encoders, phase 2 full fine-tune")
-    p.add_argument("--coordinator_address", default=None, help="not ported yet")
-    p.add_argument("--num_processes", type=int, default=None, help="not ported yet")
-    p.add_argument("--process_id", type=int, default=None, help="not ported yet")
+    p.add_argument("--coordinator_address", default=None,
+                   help="multi-process runs without torchrun: host:port of rank 0's "
+                        "rendezvous (parallel/multihost.initialize)")
+    p.add_argument("--num_processes", type=int, default=None)
+    p.add_argument("--process_id", type=int, default=None)
     return p.parse_args(argv)
-
-
-def not_ported(args: argparse.Namespace) -> Optional[str]:
-    """The message for the first flag set that needs a module not ported
-    yet, or None."""
-    if args.fsdp or args.fsdp_min_size is not None or args.mesh_model != 1 \
-            or args.mesh_dcn != 1:
-        return ("--fsdp / --fsdp_min_size / --mesh_*: parallelism is not ported yet, "
-                "ROADMAP Queue A item 16")
-    if args.coordinator_address or args.num_processes is not None \
-            or args.process_id is not None:
-        return ("--coordinator_address / --num_processes / --process_id: multi-host "
-                "training is not ported yet, ROADMAP Queue A item 16")
-    return None
 
 
 def build_config(args: argparse.Namespace):
@@ -147,6 +156,7 @@ def build_config(args: argparse.Namespace):
             args.train_manifest, DataConfig(**data_kw), args.autotune_buckets)
         print(report, f"caps={caps}")
         data_kw["audio_buckets"] = caps
+    from ..config import MeshConfig
     return Config(
         model=ModelConfig(
             num_labels=num_labels, classifier_dropout=dropout,
@@ -155,7 +165,9 @@ def build_config(args: argparse.Namespace):
             use_audio_conditioning=not args.no_audio_conditioning,
             use_asr=args.use_asr, audio=AUDIO_BACKBONE_PRESETS[args.audio_backbone]()),
         data=DataConfig(**data_kw),
-        train=TrainConfig(**train_kw))
+        train=TrainConfig(**train_kw),
+        mesh=MeshConfig(model_axis=args.mesh_model, dcn_data=args.mesh_dcn,
+                        fsdp=args.fsdp, fsdp_min_size=args.fsdp_min_size))
 
 
 def load_pretrained(args: argparse.Namespace) -> Optional[dict]:
@@ -178,15 +190,34 @@ def load_pretrained(args: argparse.Namespace) -> Optional[dict]:
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     """Run the CLI; returns train's (or train_two_phase's) result."""
     args = parse_args(argv)
-    message = not_ported(args)
-    if message:
-        raise SystemExit(message)
+    if args.mesh_model > 1:
+        raise SystemExit(f"train: --mesh_model {args.mesh_model} is not ported yet: the port's "
+                         "'model' axis shards the parameters' storage, not the matmuls, so each "
+                         "rank of a model group would run the whole step (ROADMAP item 16's "
+                         "rest); --fsdp shards over 'data'")
     from ..utils.runtime import resolve_device
     try:
         device = resolve_device(args.device)
     except RuntimeError as e:
         raise SystemExit(f"train: {e} (--device cpu)") from e
+    from ..parallel import multihost
     from ..train import loop
+
+    # one process per card: a process group from the flags or torchrun's
+    # environment, before anything runs on the card
+    try:
+        pod = multihost.initialize(args.coordinator_address, args.num_processes,
+                                   args.process_id, device=device)
+    except ValueError as e:
+        raise SystemExit(f"train: {e}") from e
+    if pod:
+        device = multihost.rank_device()
+        print(f"multi-process: rank {multihost.rank()}/"
+              f"{multihost.world_size()} on {device}")
+    elif args.mesh_dcn != 1:
+        raise SystemExit(f"train: a mesh of model {args.mesh_model} x dcn {args.mesh_dcn} "
+                         "needs that many ranks: launch one process per card with torchrun, "
+                         "or give --coordinator_address, --num_processes and --process_id")
 
     cfg = build_config(args)
     run = loop.train_two_phase if args.two_phase else loop.train

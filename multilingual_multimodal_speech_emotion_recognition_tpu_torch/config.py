@@ -3,9 +3,8 @@ ModelConfig, DataConfig and TrainConfig (config.py), Wav2Vec2Config
 (models/wav2vec2.py) and XLMRConfig (models/xlmr.py), with the same fields
 and defaults, so a JAX checkpoint's config JSON loads here unchanged, and
 of its audio backbone presets (`AUDIO_BACKBONE_PRESETS`).
-`Config` holds the model, data and train sections; the JAX package's mesh
-section waits for the parallelism slice (ROADMAP Queue A item 16) and is
-ignored when read."""
+`Config` holds the model, data, train and mesh sections, as the JAX
+package's does."""
 
 from __future__ import annotations
 
@@ -192,14 +191,29 @@ class TrainConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """The ('data', 'model') mesh over the process group's ranks
+    (parallel/mesh.py), used under a process group."""
+    data_axis: int = -1                 # -1: the ranks left over go on 'data'
+    model_axis: int = 1
+    dcn_data: int = 1                   # > 1: hosts (slices) folded slice-major
+    #                                     into 'data' (parallel/mesh.make_mesh)
+    fsdp: bool = False                  # ZeRO: parameters, gradients and AdamW
+    #                                     moments sharded over 'data'
+    fsdp_min_size: Optional[int] = None # smaller leaves replicate
+    #                                     (None: parallel/mesh.FSDP_MIN_SIZE)
+
+
+@dataclasses.dataclass(frozen=True)
 class Config:
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
 
 
 _NESTED = {"model": ModelConfig, "data": DataConfig, "train": TrainConfig,
-           "audio": Wav2Vec2Config, "text": XLMRConfig}
+           "mesh": MeshConfig, "audio": Wav2Vec2Config, "text": XLMRConfig}
 
 
 def to_json(cfg) -> str:
@@ -230,6 +244,6 @@ def from_json(s: str) -> ModelConfig:
 
 def config_from_json(s: str) -> Config:
     """Config from a whole-Config JSON (the port's or a JAX checkpoint's),
-    by the rules of the JAX package's config.from_json: unknown keys, and
-    the mesh section, are ignored; lists become tuples."""
+    by the rules of the JAX package's config.from_json: unknown keys are
+    ignored; lists become tuples."""
     return _from_dict(Config, json.loads(s))

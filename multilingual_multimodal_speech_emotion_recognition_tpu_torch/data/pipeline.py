@@ -86,6 +86,9 @@ class BucketedLoader:
                  num_workers: int = 8):
         self.ds = dataset
         self.batch_size = batch_size
+        # rows of each yielded batch: batch_size, or a rank's share of it
+        # (parallel/multihost.HostShardedLoader)
+        self.batch_rows = batch_size
         self.tokenizer = tokenizer or get_tokenizer()
         self.shuffle = shuffle
         self.seed = seed
@@ -203,7 +206,7 @@ class BucketedLoader:
         if self.ds.cfg.pad_to_batch_max and loaded:
             # the reference's eager padding: the batch's longest clip, not the cap
             T = min(T, max(len(w) for w, _, _ in loaded))
-        B = self.batch_size
+        B = self.batch_rows
 
         audio = np.zeros((B, T), np.float32)
         audio_mask = np.zeros((B, T), np.float32)

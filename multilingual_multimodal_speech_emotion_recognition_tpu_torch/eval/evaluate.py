@@ -17,6 +17,13 @@ Every entry point runs on the card unless the caller passes device="cpu";
 without a card it raises. Noise views draw from a torch.Generator on the
 step's device, seeded once per `collect_logits` and advanced per batch, so
 a run is repeatable on one device (the draws are not JAX's).
+
+Under a process group of more than one rank (parallel/multihost.py), where
+the JAX package lays each batch over its mesh, each rank scores its share
+of every batch's rows (HostShardedLoader) with the parameters gathered
+whole, and the logits, labels and indices come back onto every rank in
+rank order (allgather_rows), so every rank computes the same report. The
+TTA noise views then draw per rank, so they differ from one process's.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ from ..data.prefetch import device_prefetch
 from ..data.tokenizer import Tokenizer, get_tokenizer
 from ..models import model as mdl
 from ..ops import audio_dsp, openmax as om
+from ..parallel import multihost as mh
 from ..utils import metrics as M
 from ..utils.runtime import params_on, resolve_device, to_device, tree_to
 
@@ -142,8 +150,11 @@ def collect_logits(params: dict, cfg: Config, loader: BucketedLoader, *,
     loader's epoch 0; each step's host-clock seconds (`step_seconds`: from
     the batch's arrival on the device to its logits on the host) and the
     whole pass's (`pass_seconds`, the loader's start included), whose
-    difference is the time the steps waited for the loader."""
+    difference is the time the steps waited for the loader. With more than
+    one rank, each runs its loader's rows and the rows are gathered onto
+    every rank (COLLECTIVE); the seconds stay the rank's own."""
     dev = resolve_device(device)
+    params = mh.host_replicated(params)
     if use_tta:
         tta = make_tta_eval_step(cfg, num_tta, use_openmax=use_openmax, device=dev)
         generator = torch.Generator(device=dev).manual_seed(NOISE_SEED)
@@ -161,14 +172,16 @@ def collect_logits(params: dict, cfg: Config, loader: BucketedLoader, *,
         logits_all.append(logits[keep])
         labels_all.append(host["labels"][keep])
         indices_all.append(host["indices"][keep])
-    return {
+    rows = {
         "logits": (np.concatenate(logits_all) if logits_all
                    else np.zeros((0, cfg.model.num_labels))),
         "labels": np.concatenate(labels_all) if labels_all else np.zeros((0,), np.int64),
         "indices": np.concatenate(indices_all) if indices_all else np.zeros((0,), np.int32),
-        "step_seconds": np.asarray(seconds),
-        "pass_seconds": time.perf_counter() - start,
     }
+    if mh.world_size() > 1:
+        rows = {k: mh.allgather_rows(v) for k, v in rows.items()}
+    return {**rows, "step_seconds": np.asarray(seconds),
+            "pass_seconds": time.perf_counter() - start}
 
 
 def evaluate_manifest(params: dict, cfg: Config, manifest: str, *,
@@ -183,13 +196,14 @@ def evaluate_manifest(params: dict, cfg: Config, manifest: str, *,
     The parameters go to `device` once."""
     dev = resolve_device(device)
     tok = tokenizer or get_tokenizer(vocab_size=cfg.model.text.vocab_size)
-    params = tree_to(params, dev)
+    params = tree_to(mh.host_replicated(params), dev)
+    Loader = mh.HostShardedLoader if mh.world_size() > 1 else BucketedLoader
 
     optimal_temp = 1.0
     cal_seconds = np.zeros(0)
     if calibrate and val_manifest:
-        val_loader = BucketedLoader(SERDataset(val_manifest, cfg.data),
-                                    batch_size=batch_size, tokenizer=tok, shuffle=False)
+        val_loader = Loader(SERDataset(val_manifest, cfg.data),
+                            batch_size=batch_size, tokenizer=tok, shuffle=False)
         # the calibration pass runs without OpenMax (the reference's eval.py:152)
         cal = collect_logits(params, cfg, val_loader, use_openmax=False, device=dev)
         optimal_temp = find_optimal_temperature(cal["logits"], cal["labels"])
@@ -197,8 +211,8 @@ def evaluate_manifest(params: dict, cfg: Config, manifest: str, *,
         if verbose:
             print(f"Optimal temperature: {optimal_temp:.3f}")
 
-    loader = BucketedLoader(SERDataset(manifest, cfg.data),
-                            batch_size=batch_size, tokenizer=tok, shuffle=False)
+    loader = Loader(SERDataset(manifest, cfg.data),
+                    batch_size=batch_size, tokenizer=tok, shuffle=False)
     out = collect_logits(params, cfg, loader, use_tta=use_tta, num_tta=num_tta,
                          use_openmax=True, device=dev)
     logits, labels = out["logits"], out["labels"]

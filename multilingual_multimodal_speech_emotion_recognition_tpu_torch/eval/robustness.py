@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..utils import metrics as M
+from ..utils.runtime import resolve_device
 
 Tensor = torch.Tensor
 
@@ -129,14 +130,14 @@ def evaluate_noise_robustness(
         noise_types: Sequence[str] = ("gaussian", "babble", "music"),
         baseline_f1: Optional[float] = None,
         seed: int = 0,
-        device: Union[str, torch.device] = "cpu") -> Dict:
+        device: Optional[Union[str, torch.device]] = None) -> Dict:
     """Noise-robustness sweep. `predict_fn(batch, generator, snr_db,
     noise_type)` must return {"preds": [...], "probs": [...], "labels":
     [...]} for the corrupted batch (the caller owns the model forward so
     this module stays model-agnostic); `generator` is one torch.Generator
-    on `device`, seeded from `seed` once, whose draws the batches take in
-    order."""
-    generator = torch.Generator(device=device).manual_seed(seed)
+    on `device` (the card unless it says otherwise), seeded from `seed`
+    once, whose draws the batches take in order."""
+    generator = torch.Generator(device=resolve_device(device)).manual_seed(seed)
     results = {}
     for noise_type in noise_types:
         per_snr = {}

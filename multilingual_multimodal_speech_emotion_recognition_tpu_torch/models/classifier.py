@@ -141,3 +141,58 @@ def classifier_forward(params: dict, x: Tensor, *, use_openmax: bool = False,
     return ClassifierOutput(logits=logits, features=feats,
                             anchor_similarities=sims, anchor_loss=anchor_loss,
                             uncertainty=u)
+
+
+# ---------------------------------------------------------------------------
+# Legacy heads: the reference's smaller MLP classifiers, kept for backward
+# compatibility (on no runtime path of its scripts)
+# ---------------------------------------------------------------------------
+
+def init_legacy_mlp(init: layers.Init, input_dim: int, num_labels: int,
+                    hidden: int = 128) -> dict:
+    """Linear(in, 256) -> ReLU -> Dropout -> Linear(256, hidden) -> ReLU ->
+    Dropout -> Linear(hidden, C), and the Weibull state."""
+    return {
+        "lin1": layers.init_linear(init, input_dim, 256),
+        "lin2": layers.init_linear(init, 256, hidden),
+        "lin3": layers.init_linear(init, hidden, num_labels),
+        "weibull": openmax_ops.init_weibull(init, num_labels, hidden),
+    }
+
+
+def legacy_mlp_forward(params: dict, x: Tensor, *, dropout_rate: float = 0.1,
+                       generator: Optional[torch.Generator] = None,
+                       deterministic: bool = True):
+    """(penultimate activations [B, hidden], logits [B, C])."""
+    h = torch.relu(layers.linear(params["lin1"], x))
+    h = layers.dropout(generator, h, dropout_rate, deterministic)
+    h = torch.relu(layers.linear(params["lin2"], h))
+    h = layers.dropout(generator, h, dropout_rate, deterministic)
+    return h, layers.linear(params["lin3"], h)
+
+
+def legacy_classifier_forward(params: dict, x: Tensor, **kw) -> Tensor:
+    """The plain legacy classifier: logits only."""
+    return legacy_mlp_forward(params, x, **kw)[1]
+
+
+def legacy_openmax_forward(params: dict, x: Tensor, *, use_openmax: bool = True,
+                           dropout_rate: float = 0.1,
+                           generator: Optional[torch.Generator] = None,
+                           deterministic: bool = True) -> Tensor:
+    """The legacy OpenMax classifier: at inference, logits scaled by
+    1 - unknown_prob where unknown_prob > 0.5 (threshold 0.5 and scale 1.0,
+    not the deep head's 0.3 and 0.8)."""
+    acts, logits = legacy_mlp_forward(params, x, dropout_rate=dropout_rate,
+                                      generator=generator, deterministic=deterministic)
+    if use_openmax and deterministic:
+        logits = openmax_ops.openmax_adjust(params["weibull"], acts.float(), logits,
+                                            threshold=0.5, reduction_scale=1.0)
+    return logits
+
+
+def legacy_fit_weibull(features: Tensor, labels: Tensor, num_classes: int) -> dict:
+    """The legacy parameterisation: alpha 2.0, beta = std(distances), tau =
+    min(distances), no 1.5x / 0.8x scaling."""
+    return openmax_ops.fit_weibull(features, labels, num_classes,
+                                   alpha=2.0, beta_scale=1.0, tau_scale=1.0)

@@ -1,12 +1,13 @@
-"""Research-halo modules of the port, plain PyTorch: those the streaming
-recognizer and the integration check need (the rest, confidence_fusion,
-cross_lingual and loss_integration, are the second half of ROADMAP Queue A
-item 15).
+"""Research-halo modules of the port, plain PyTorch.
 
-temporal       — PE, causal TCN, smoothing, speaker change, segment buffer
-dual_gate_ood  — early quality gate + energy ⊕ Mahalanobis late gate
+temporal           — PE, causal TCN, smoothing, speaker change, segment buffer
+dual_gate_ood      — early quality gate + energy ⊕ Mahalanobis late gate
+confidence_fusion  — dynamic gating MLP, policy clamps, adaptive fusion
+cross_lingual      — gradient reversal, adversarial language head, adapters
+loss_integration   — phase schedule, energy-margin / temporal / calibration losses
 """
 
-from . import dual_gate_ood, temporal
+from . import confidence_fusion, cross_lingual, dual_gate_ood, loss_integration, temporal
 
-__all__ = ["dual_gate_ood", "temporal"]
+__all__ = ["confidence_fusion", "cross_lingual", "dual_gate_ood", "loss_integration",
+           "temporal"]

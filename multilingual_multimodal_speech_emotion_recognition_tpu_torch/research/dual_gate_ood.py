@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from ..models import layers
+from ..utils.runtime import resolve_device
 
 Tensor = torch.Tensor
 
@@ -190,7 +191,10 @@ def late_ood(params: dict, logits: Tensor, features: Tensor, *,
 # ------------------------------------------------------ adaptive thresholds
 
 def init_threshold_manager(num_languages: int = NUM_LANGUAGES,
-                           device: Union[str, torch.device] = "cpu") -> dict:
+                           device: Optional[Union[str, torch.device]] = None) -> dict:
+    """The adaptive thresholds, all 0.5; on the card unless `device` says
+    otherwise."""
+    device = resolve_device(device)
     return {"thresholds": torch.full((num_languages, len(SNR_BANDS)), 0.5, device=device),
             "global_threshold": torch.tensor(0.5, device=device)}
 

@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from ..models import layers
+from ..utils.runtime import resolve_device
 
 Tensor = torch.Tensor
 
@@ -129,7 +130,9 @@ class TemporalBufferState(NamedTuple):
 
 
 def init_buffer(B: int, dim: int, size: int = BUFFER_SIZE,
-                device: Union[str, torch.device] = "cpu") -> TemporalBufferState:
+                device: Optional[Union[str, torch.device]] = None) -> TemporalBufferState:
+    """An empty buffer; on the card unless `device` says otherwise."""
+    device = resolve_device(device)
     return TemporalBufferState(
         features=torch.zeros(B, size, dim, device=device),
         confidences=torch.zeros(B, size, device=device),
@@ -156,9 +159,11 @@ def buffer_valid_mask(state: TemporalBufferState) -> Tensor:
 
 def init_temporal_module(feature_dim: int = 256, num_emotions: int = 4, *,
                          generator: Optional[torch.Generator] = None,
-                         device: Union[str, torch.device] = "cpu") -> dict:
+                         device: Optional[Union[str, torch.device]] = None) -> dict:
     """Random parameters with the JAX module's tree, shapes and init
-    distributions; `generator` lives on `device` (None seeds one with 0)."""
+    distributions; `generator` lives on `device` (None seeds one with 0),
+    the card unless `device` says otherwise."""
+    device = resolve_device(device)
     init = layers.Init(generator, device)
     return {
         "tcn": init_tcn(init, feature_dim, feature_dim // 2),

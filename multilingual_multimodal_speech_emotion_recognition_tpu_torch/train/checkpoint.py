@@ -19,6 +19,10 @@ pointing at the wrong weights. A legacy marker without a fingerprint is
 checked against the stored weights themselves and rewritten.
 `restore_checkpoint` merges the store back, so a reader (the eval CLI)
 sees a whole parameter tree either way.
+
+Under a process group every rank calls `save_checkpoint`: sharded leaves
+(DTensors) are gathered whole on every rank (a collective), and only rank
+0 writes; on resume every rank reads rank 0's files (a shared filesystem).
 """
 
 from __future__ import annotations
@@ -94,8 +98,15 @@ def save_checkpoint(path: Union[str, Path], *, params: dict,
                     frozen_store: Optional[Union[str, Path]] = None) -> Path:
     """Write a checkpoint directory; returns its path. With dedup_frozen the
     backbones go to `frozen_store` (default: a `frozen_store` beside the
-    checkpoint), written by the first save only."""
+    checkpoint), written by the first save only. COLLECTIVE under a process
+    group: every rank calls it, rank 0 alone writes."""
+    from ..parallel import multihost as mh
+    params = mh.host_replicated(params)
+    if opt_state is not None:
+        opt_state = mh.host_replicated(opt_state)
     path = Path(path)
+    if not mh.is_coordinator():
+        return path
     path.mkdir(parents=True, exist_ok=True)
     meta = {"step": int(step), "epoch": int(epoch), "f1": float(f1)}
     if extra:

@@ -26,6 +26,15 @@ temperature (Hinton et al., 2015).
 
 Each step's dropout is drawn from a torch.Generator on the device seeded
 from (TrainConfig.seed, global step), as the train loop's steps are.
+
+Under a process group (parallel/multihost.py) the run takes the train
+loop's pod branches: the student's parameters sharded on the mesh of the
+teacher config's `mesh` section ('data' only, train/loop.train_mesh), each rank distilling its share of the
+global batch (HostShardedLoader, the teacher replicated on every rank),
+the loss of the global batch (the rows' student and teacher outputs
+gathered, train/train_step.RowGather), the gradients reduced onto the
+parameters' placements, the validation gathered onto every rank, and rank
+0 alone writing the metrics and the checkpoints.
 """
 
 from __future__ import annotations
@@ -43,9 +52,11 @@ from ..data.prefetch import device_prefetch
 from ..data.tokenizer import Tokenizer, get_tokenizer
 from ..models import layers, model as mdl
 from ..ops import losses
+from ..parallel import mesh as mesh_lib, multihost as mh
 from ..utils.metrics import MetricsWriter, weighted_f1
-from ..utils.runtime import map_leaves, params_on, resolve_device, to_device, tree_to
+from ..utils.runtime import params_on, resolve_device, to_device, tree_to
 from . import checkpoint as ckpt_lib, loop as loop_lib, optimizer as opt_lib
+from . import train_step as ts
 
 Device = Optional[Union[str, torch.device]]
 
@@ -112,27 +123,33 @@ def _kd_loss(student_logits: torch.Tensor, teacher_logits: torch.Tensor,
 
 def distill_loss(params: dict, teacher_params: dict, batch: dict,
                  generator: torch.Generator, *, teacher_cfg: ModelConfig,
-                 student_cfg: ModelConfig, tcfg: TrainConfig, dcfg: DistillConfig):
+                 student_cfg: ModelConfig, tcfg: TrainConfig, dcfg: DistillConfig,
+                 rows: ts.Rows = None):
     """(loss, metrics) of one batch on the batch's device: the teacher's
     eval forward under torch.no_grad(), the student's training forward
     with dropout from `generator`, and the loss of the module docstring.
-    The metrics are detached 0-dim tensors."""
+    The metrics are detached 0-dim tensors. `rows` (a train_step.RowGather)
+    makes it the global batch's loss when `batch` holds this rank's rows."""
     with torch.no_grad():
         t_out = mdl.model_forward(teacher_params, teacher_cfg, batch, deterministic=True)
     t_logits, t_fused = t_out.logits, t_out.fused
     s_out = mdl.model_forward(params, student_cfg, batch, deterministic=False,
                               generator=generator)
-    labels = batch["labels"].long()
-    kd = _kd_loss(s_out.logits, t_logits, dcfg.temperature)
-    ce = losses.label_smoothing_cross_entropy(
-        s_out.logits, labels, smoothing=tcfg.label_smoothing)
+    s_logits, s_fused, labels = s_out.logits, s_out.fused, batch["labels"].long()
+    if rows is not None:
+        s_logits, s_fused, labels, t_logits, t_fused = (
+            rows(t) for t in (s_logits, s_fused, labels, t_logits, t_fused))
+    kd = _kd_loss(s_logits, t_logits, dcfg.temperature)
+    ce = losses.label_smoothing_cross_entropy(s_logits, labels, smoothing=tcfg.label_smoothing)
     loss = dcfg.alpha * kd + (1.0 - dcfg.alpha) * ce
     fm = torch.zeros((), device=loss.device)
     if dcfg.feature_match_weight > 0:
-        proj = layers.linear(params["distill_proj"], s_out.fused.float())
+        proj_params = params["distill_proj"] if rows is None else rows.shared(
+            params["distill_proj"])
+        proj = layers.linear(proj_params, s_fused.float())
         fm = (proj - t_fused.float()).square().mean()
         loss = loss + dcfg.feature_match_weight * fm
-    s_pred = s_out.logits.detach().argmax(-1)
+    s_pred = s_logits.detach().argmax(-1)
     return loss, {"loss": loss.detach(), "kd": kd.detach(), "ce": ce.detach(),
                   "feature_match": fm.detach(),
                   "teacher_agreement": (s_pred == t_logits.argmax(-1)).float().mean(),
@@ -145,7 +162,9 @@ def make_distill_step(teacher_cfg: ModelConfig, student_cfg: ModelConfig,
     """step(params, teacher_params, opt_state, batch, seed) -> metrics (a
     dict of 0-dim tensors on the device): the teacher's inference and one
     update of the student's parameters and opt_state, in place. `seed`
-    (an int) seeds the step's dropout generator."""
+    (an int) seeds the step's dropout generator. Sharded student
+    parameters and batch (DTensors) take the train step's route
+    (train/train_step.py)."""
     dev = resolve_device(device)
     generator = torch.Generator(device=dev)
     cfgs = dict(teacher_cfg=teacher_cfg, student_cfg=student_cfg, tcfg=tcfg, dcfg=dcfg)
@@ -154,21 +173,16 @@ def make_distill_step(teacher_cfg: ModelConfig, student_cfg: ModelConfig,
              seed: int) -> Dict[str, torch.Tensor]:
         params_on(params, dev)
         params_on(teacher_params, dev)
-        batch = {k: to_device(v, dev) for k, v in batch.items()}
+        mesh = ts.sharded_mesh(params)
+        batch = {k: to_device(opt_lib.local(v), dev) for k, v in batch.items()}
         generator.manual_seed(seed)
-        paths = [p for p, _ in optimizer.trainable(params)]
-        wanted, leaves = set(paths), {}
-
-        def alias(path, t):
-            if path not in wanted:
-                return t
-            leaves[path] = t.detach().requires_grad_(True)
-            return leaves[path]
-
-        loss, metrics = distill_loss(map_leaves(params, alias), teacher_params, batch,
-                                     generator, **cfgs)
-        grads = torch.autograd.grad(loss, [leaves[p] for p in paths], allow_unused=True,
-                                    materialize_grads=True)
+        trainable = optimizer.trainable(params)
+        paths = [p for p, _ in trainable]
+        view, inputs = ts.trainable_view(params, paths, mesh)
+        loss, metrics = distill_loss(view, teacher_params, batch, generator, **cfgs,
+                                     rows=ts.RowGather(mesh) if mesh is not None else None)
+        grads = torch.autograd.grad(loss, inputs, allow_unused=True, materialize_grads=True)
+        grads = ts.reduce_grads(grads, [p for _, p in trainable], mesh)
         optimizer.apply_(params, dict(zip(paths, grads)), opt_state)
         return metrics
 
@@ -194,13 +208,14 @@ def distill(teacher_params: Dict, teacher_cfg: Config, *,
     tok = tokenizer or get_tokenizer(
         vocab_size=student_mcfg.text.vocab_size)
 
-    train_loader = BucketedLoader(SERDataset(train_manifest, teacher_cfg.data),
-                                  batch_size=tcfg.batch_size, tokenizer=tok,
-                                  shuffle=True, seed=tcfg.seed,
-                                  drop_remainder=True)
-    val_loader = BucketedLoader(SERDataset(val_manifest, teacher_cfg.data),
-                                batch_size=tcfg.batch_size, tokenizer=tok,
-                                shuffle=False, seed=0)
+    mesh = loop_lib.train_mesh(teacher_cfg.mesh, dev)
+    Loader = mh.HostShardedLoader if mh.world_size() > 1 else BucketedLoader
+    train_loader = Loader(SERDataset(train_manifest, teacher_cfg.data),
+                          batch_size=tcfg.batch_size, tokenizer=tok,
+                          shuffle=True, seed=tcfg.seed, drop_remainder=True)
+    val_loader = Loader(SERDataset(val_manifest, teacher_cfg.data),
+                        batch_size=tcfg.batch_size, tokenizer=tok,
+                        shuffle=False, seed=0)
 
     generator = torch.Generator(device=dev).manual_seed(tcfg.seed)
     params = mdl.init_model(student_mcfg, generator, device=dev)
@@ -208,7 +223,10 @@ def distill(teacher_params: Dict, teacher_cfg: Config, *,
         params["distill_proj"] = layers.init_linear(
             layers.Init(generator, dev), student_mcfg.proj_dim,
             teacher_cfg.model.proj_dim)
-    teacher_params = tree_to(teacher_params, dev)
+    teacher_params = tree_to(mh.host_replicated(teacher_params), dev)
+    if mesh is not None:
+        params = mesh_lib.shard_params(params, mesh, fsdp=teacher_cfg.mesh.fsdp,
+                                       fsdp_min_size=teacher_cfg.mesh.fsdp_min_size)
 
     steps_per_epoch = max(1, train_loader.batches_per_epoch())
     optimizer = opt_lib.make_train_optimizer(
@@ -221,7 +239,9 @@ def distill(teacher_params: Dict, teacher_cfg: Config, *,
     step_fn = make_distill_step(teacher_cfg.model, student_mcfg, tcfg, dcfg,
                                 optimizer, device=dev)
 
-    writer = MetricsWriter(str(Path(tcfg.save_dir) / "distill_metrics.jsonl"))
+    progress = progress and mh.is_coordinator()
+    writer = (MetricsWriter(str(Path(tcfg.save_dir) / "distill_metrics.jsonl"))
+              if mh.is_coordinator() else loop_lib._NullWriter())
     history, best_f1, best_path = [], -1.0, None
     global_step = 0
 
@@ -230,6 +250,8 @@ def distill(teacher_params: Dict, teacher_cfg: Config, *,
         last_aux = None
         for batch, _ in device_prefetch(train_loader.epoch(epoch), dev,
                                         skip=TRAIN_HOST_KEYS):
+            if mesh is not None:
+                batch = mesh_lib.shard_batch(batch, mesh)
             last_aux = step_fn(params, teacher_params, opt_state, batch,
                                loop_lib.step_seed(tcfg.seed, global_step))
             global_step += 1

@@ -1,4 +1,4 @@
-"""The training loop on one device.
+"""The training loop, on one card or one rank per card.
 
 Counterpart of multilingual_multimodal_speech_emotion_recognition_tpu/
 train/loop.py, with the reference's flow (train.py:26-263): manifest
@@ -8,10 +8,20 @@ checkpoint per epoch named epoch_{e}_f1_{f1:.4f} with the optimizer state
 (the backbones deduplicated into one frozen store while they are frozen),
 resume, early stopping, a resumable checkpoint on SIGTERM and the Weibull
 fit on the validation features after the last epoch, into the final and
-the best checkpoint. The JAX package's pod branches (its mesh, the
-multi-host loader and metrics sink) wait for ROADMAP Queue A item 16.
-`pretrained` Hugging Face state dicts replace the fresh backbones
-(models/model.py:load_pretrained_backbones).
+the best checkpoint. `pretrained` Hugging Face state dicts replace the
+fresh backbones (models/model.py:load_pretrained_backbones).
+
+Under a process group (parallel/multihost.initialize: torchrun, or the
+train CLI's multi-host flags) the loop takes the JAX package's pod
+branches: the mesh of cfg.mesh ('data' only: train_mesh refuses a
+'model' axis), the parameters sharded on it after init
+and after a resume (parallel/mesh.shard_params, FSDP by cfg.mesh.fsdp),
+the batch sharded on 'data' (TrainConfig.batch_size is the global batch;
+with more than one rank each decodes its share, HostShardedLoader), the
+metrics JSONL and the progress lines on rank 0 alone, the validation and
+Weibull passes' logits, labels and features gathered onto every rank
+(allgather_rows), so every rank computes the same F1 and the same fit, and
+the SIGTERM flag agreed by every rank (any_process) before any acts on it.
 
 The validation pass and the Weibull fit's feature pass are the eval
 forward under torch.inference_mode(), so they run the classifier's kernel
@@ -39,6 +49,8 @@ from ..data.tokenizer import Tokenizer, get_tokenizer
 from ..eval.evaluate import make_eval_step
 from ..models import model as mdl
 from ..ops import openmax as om
+from ..parallel import mesh as mesh_lib
+from ..parallel import multihost as mh
 from ..utils.metrics import MetricsWriter, weighted_f1
 from ..utils.runtime import map_leaves, resolve_device
 from . import checkpoint as ckpt_lib
@@ -54,12 +66,24 @@ def step_seed(seed: int, step: int) -> int:
     return (seed * 2 ** 32 + step) % 2 ** 63
 
 
+class _NullWriter:
+    """The metrics sink of the ranks other than 0 (rank 0 owns the JSONL;
+    every rank builds the same records, so their host reads stay in step)."""
+
+    def write(self, *_a, **_k):
+        pass
+
+
 def evaluate(params: dict, cfg: Config, loader: BucketedLoader, *,
              collect_features: bool = False, use_openmax: bool = False,
              device: Device = None) -> Dict[str, np.ndarray]:
     """The eval pass over the loader's epoch 0: logits, labels and preds
-    of the real rows (and the penultimate features), as numpy arrays."""
+    of the real rows (and the penultimate features), as numpy arrays.
+    Sharded parameters are gathered whole first. With more than one rank
+    each runs its loader's rows and the results are gathered onto every
+    rank in rank order (COLLECTIVE)."""
     dev = resolve_device(device)
+    params = mh.host_replicated(params)
     step = make_eval_step(cfg.model, use_openmax=use_openmax, device=dev)
     logits_all, labels_all, feats_all = [], [], []
     for batch, host in device_prefetch(loader.epoch(0), dev, skip=EVAL_HOST_KEYS):
@@ -72,10 +96,17 @@ def evaluate(params: dict, cfg: Config, loader: BucketedLoader, *,
     logits = (np.concatenate(logits_all) if logits_all
               else np.zeros((0, cfg.model.num_labels), np.float32))
     labels = np.concatenate(labels_all) if labels_all else np.zeros((0,), np.int32)
+    pod = mh.world_size() > 1
+    if pod:
+        logits, labels = mh.allgather_rows(logits), mh.allgather_rows(labels)
     out = {"logits": logits, "labels": labels,
            "preds": logits.argmax(-1) if len(logits) else np.zeros((0,), np.int64)}
     if collect_features:
-        out["features"] = np.concatenate(feats_all) if feats_all else None
+        f = np.concatenate(feats_all) if feats_all else None
+        if pod:
+            # every rank has rows here or none does: the loaders share one plan
+            f = mh.allgather_rows(f) if f is not None else None
+        out["features"] = f
     return out
 
 
@@ -107,6 +138,21 @@ class PreemptionGuard:
         return False
 
 
+def train_mesh(mcfg, device: torch.device):
+    """The mesh of `mcfg` (a config.MeshConfig) when a process group is up,
+    one rank included (the pod branches), else None. A 'model' axis over 1
+    is refused: the port's 'model' placements shard storage only
+    (parallel/mesh.py), so each rank of a 'model' group would run its data
+    shard's whole step, that many times the work for no memory saved."""
+    if not mh.group_up():
+        return None
+    if mcfg.model_axis > 1:
+        raise ValueError(f"a 'model' mesh axis of {mcfg.model_axis} is not ported yet: the "
+                         "port's 'model' axis shards storage, not the matmuls (ROADMAP item "
+                         "16's rest); shard over 'data' with fsdp instead")
+    return mesh_lib.mesh_from_config(mcfg, device=device)
+
+
 def train(cfg: Config, *, train_manifest: str, val_manifest: str,
           tokenizer: Optional[Tokenizer] = None,
           pretrained: Optional[Dict] = None,
@@ -124,21 +170,33 @@ def train(cfg: Config, *, train_manifest: str, val_manifest: str,
     dev = resolve_device(device)
     tok = tokenizer or get_tokenizer(vocab_size=cfg.model.text.vocab_size)
     save_root = Path(tcfg.save_dir)
-    writer = MetricsWriter(log_path or str(save_root / "metrics.jsonl"))
-    train_loader = BucketedLoader(SERDataset(train_manifest, cfg.data),
-                                  batch_size=tcfg.batch_size, tokenizer=tok,
-                                  shuffle=True, seed=tcfg.seed, drop_remainder=True)
-    val_loader = BucketedLoader(SERDataset(val_manifest, cfg.data),
-                                batch_size=tcfg.batch_size, tokenizer=tok,
-                                shuffle=False, seed=0)
+    mesh = train_mesh(cfg.mesh, dev)
+    progress = progress and mh.is_coordinator()
+    writer = (MetricsWriter(log_path or str(save_root / "metrics.jsonl"))
+              if mh.is_coordinator() else _NullWriter())
+    Loader = mh.HostShardedLoader if mh.world_size() > 1 else BucketedLoader
+    train_loader = Loader(SERDataset(train_manifest, cfg.data),
+                          batch_size=tcfg.batch_size, tokenizer=tok,
+                          shuffle=True, seed=tcfg.seed, drop_remainder=True)
+    val_loader = Loader(SERDataset(val_manifest, cfg.data),
+                        batch_size=tcfg.batch_size, tokenizer=tok,
+                        shuffle=False, seed=0)
+
+    def shard(p: dict) -> dict:
+        if mesh is None:
+            return p
+        return mesh_lib.shard_params(p, mesh, fsdp=cfg.mesh.fsdp,
+                                     fsdp_min_size=cfg.mesh.fsdp_min_size)
 
     if initial_params is not None:
-        params = map_leaves(initial_params, lambda _, t: t.to(dev, copy=True))
+        params = map_leaves(mh.host_replicated(initial_params),
+                            lambda _, t: t.to(dev, copy=True))
     else:
         params = mdl.init_model(cfg.model, torch.Generator(device=dev).manual_seed(tcfg.seed),
                                 device=dev)
         if pretrained:
             params = mdl.load_pretrained_backbones(params, **pretrained)
+    params = shard(params)
 
     steps_per_epoch = max(1, train_loader.batches_per_epoch())
     optimizer = opt_lib.make_train_optimizer(
@@ -153,12 +211,14 @@ def train(cfg: Config, *, train_manifest: str, val_manifest: str,
     start_epoch, global_step = 0, 0
     if tcfg.resume_from:
         params, meta = ckpt_lib.restore_checkpoint(tcfg.resume_from, device=dev)
+        params = shard(params)
         restored = ckpt_lib.restore_opt_state(tcfg.resume_from, device=dev)
         if restored is not None:
             if set(restored["mu"]) != set(opt_state["mu"]):
                 raise ValueError(f"{tcfg.resume_from}: its optimizer state does not "
                                  "match this run's trainable parameters")
-            opt_state = restored
+            # the moments onto the fresh state's layout (sharded under FSDP)
+            opt_state = restored if mesh is None else mesh_lib.shard_like(restored, opt_state)
         start_epoch = int(meta.get("epoch", -1)) + 1
         global_step = int(meta.get("step", 0))
         if progress:
@@ -178,9 +238,10 @@ def train(cfg: Config, *, train_manifest: str, val_manifest: str,
         ev = evaluate(p, cfg, val_loader, collect_features=True, device=dev)
         if ev["features"] is None or not len(ev["features"]):
             return p
-        p["classifier"]["weibull"] = om.fit_weibull(
-            torch.from_numpy(ev["features"]).to(dev),
-            torch.from_numpy(ev["labels"]).to(dev), cfg.model.num_labels)
+        weibull = om.fit_weibull(torch.from_numpy(ev["features"]).to(dev),
+                                 torch.from_numpy(ev["labels"]).to(dev), cfg.model.num_labels)
+        p["classifier"]["weibull"] = (weibull if mesh is None else mesh_lib.shard_like(
+            weibull, p["classifier"]["weibull"]))
         return p
 
     best_f1, best_epoch, history = -1.0, -1, []
@@ -197,9 +258,16 @@ def train(cfg: Config, *, train_manifest: str, val_manifest: str,
             t_window, n_window = time.time(), 0
             for batch, _ in device_prefetch(train_loader.epoch(epoch), dev,
                                             skip=TRAIN_HOST_KEYS):
+                if mesh is not None:
+                    batch = mesh_lib.shard_batch(batch, mesh)
                 metrics = step_fn(params, opt_state, batch, step_seed(tcfg.seed, global_step))
                 global_step += 1
                 n_window += 1
+                if mesh is not None:
+                    # every rank agrees on the flag before any acts on it: a
+                    # rank alone in the checkpoint's collectives would wait
+                    # for ranks still in the step's
+                    guard.triggered = mh.any_process(guard.triggered)
                 if guard.triggered:
                     break
                 losses.append(metrics.loss)

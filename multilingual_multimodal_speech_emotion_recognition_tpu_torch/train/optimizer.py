@@ -29,6 +29,12 @@ were without reading anything back from the card.
 The state is {"count": int32 [], "mu": {path: tensor}, "nu": {path:
 tensor}} over the trainable leaves, keyed by their "/"-joined paths; it is
 what train/checkpoint.py saves.
+
+Sharded parameters (DTensors, parallel/mesh.shard_params) get moments of
+the same layout (ZeRO: each rank keeps its shards' moments) and sharded
+gradients; the global norm sums the shards' squares over the ranks (one
+all-reduce), and every other step of the update is elementwise, so it runs
+on each rank's local shards.
 """
 
 from __future__ import annotations
@@ -42,6 +48,39 @@ from ..utils.runtime import leaves_with_paths, map_leaves
 
 Tensor = torch.Tensor
 Step = Union[int, float, Tensor]
+
+
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def local(t: Tensor) -> Tensor:
+    """A DTensor's local shard (a view: in-place updates reach the DTensor),
+    or the tensor itself."""
+    return t.to_local() if _is_dtensor(t) else t
+
+
+def global_norm(tensors: List[Tensor]) -> Tensor:
+    """The L2 norm over every element of every tensor. DTensors count each
+    element once: their shards' squared norms (torch._foreach_norm), each
+    over the number of ranks that hold a copy of it, are summed over the
+    mesh (one all-reduce a mesh dimension)."""
+    if not tensors or not _is_dtensor(tensors[0]):
+        return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate
+    mesh = tensors[0].device_mesh
+    sizes = mesh.shape
+    copies = torch.tensor([math.prod(n for n, pl in zip(sizes, t.placements)
+                                     if isinstance(pl, Replicate)) for t in tensors],
+                          dtype=torch.float32, device=local(tensors[0]).device)
+    norms = torch.stack(torch._foreach_norm([local(t) for t in tensors])).float()
+    sq = (norms.square() / copies).sum()
+    for name in mesh.mesh_dim_names:
+        if mesh[name].size() > 1:
+            dist.all_reduce(sq, group=mesh[name].get_group())
+    return sq.sqrt()
 
 
 def _step_f32(step: Step) -> Tensor:
@@ -183,9 +222,12 @@ class AdamW:
         okf = (torch.ones((), device=count.device) if ok is None
                else ok.to(device=count.device, dtype=torch.float32))
         g_all = [grads[p] for p, _ in trainable]
-        if self.grad_clip is not None and g_all:
+        norm = (global_norm(g_all) if self.grad_clip is not None and g_all else None)
+        # every step below is elementwise: on the local shards of DTensors
+        trainable = [(p, local(t)) for p, t in trainable]
+        g_all = [local(g) for g in g_all]
+        if norm is not None:
             # optax's (g / norm) * max_norm where norm >= max_norm, else g
-            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g_all)))
             keep = norm < self.grad_clip
             g_all = torch._foreach_div(g_all, torch.where(keep, 1.0, norm))
             torch._foreach_mul_(g_all, torch.where(keep, 1.0, self.grad_clip))
@@ -206,8 +248,8 @@ class AdamW:
             paths = [p for p, _ in pairs]
             P = [t for _, t in pairs]
             G = [grads[p] for p in paths]
-            mu_store = [state["mu"][p] for p in paths]
-            V = [state["nu"][p] for p in paths]
+            mu_store = [local(state["mu"][p]) for p in paths]
+            V = [local(state["nu"][p]) for p in paths]
             low_mu = self.mu_dtypes[group] != torch.float32
             if low_mu:
                 # b1 m in m's dtype, b1 rounded to it too, as optax multiplies

@@ -26,11 +26,23 @@ The non-finite guard (the reference's train_crema.py:360-368): where the
 gradients' global norm or the loss is not finite, the gradients are
 zeroed and the optimizer applies nothing, the step count included
 (train/optimizer.py), decided on the card by a 0-dim `ok` flag.
+
+Sharded parameters (DTensors, parallel/mesh.shard_params) and a sharded
+batch (parallel/mesh.shard_batch) take the same step on the global batch,
+as the JAX step does under GSPMD: the parameters are gathered whole (no
+gradient through the gather), the forward and backward run on this rank's
+rows, and the rows' logits, uncertainty, fused vectors and labels are
+gathered (RowGather: an all-gather whose backward keeps this rank's rows)
+before the losses, so the class counts, the anchor pull and every batch
+mean are the global batch's; the gradients are then reduced to the
+parameters' placements (a reduce-scatter over 'data') and the update runs
+on each rank's shards. With grad_accum > 1 the i-th microbatch is every rank's
+i-th slice of its rows.
 """
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Optional, Union
+from typing import List, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -40,7 +52,7 @@ from ..models import prototypes as protos
 from ..ops import audio_dsp, losses
 from ..utils.runtime import map_leaves, params_on, resolve_device, to_device
 from .checkpoint import FROZEN_SUBTREES
-from .optimizer import AdamW
+from .optimizer import AdamW, global_norm, local
 
 Tensor = torch.Tensor
 
@@ -62,47 +74,147 @@ def stop_backbone_gradients(params: dict) -> dict:
             for k, v in params.items()}
 
 
+class _ScaleGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t: Tensor, scale: float) -> Tensor:
+        ctx.scale = scale
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g: Tensor):
+        return g * ctx.scale, None
+
+
+class RowGather:
+    """The global batch's loss from this rank's rows, under a mesh.
+
+    Calling it on t (this rank's rows) gives the global batch's rows in
+    rank order, on every rank: an all-gather over 'data' whose backward
+    keeps this rank's rows of the cotangent (every rank computes the same
+    loss from them), so a parameter of the forward gets this rank's share
+    of its gradient and the reduction over 'data' (reduce_grads) sums the
+    shares. A parameter the loss itself uses on the gathered rows (the
+    prototypes, distillation's projection) gets the whole gradient on
+    every rank instead: `shared` passes it with its gradient divided by
+    the 'data' size, so that the same sum counts it once."""
+
+    def __init__(self, mesh):
+        from torch.distributed.tensor import Replicate, Shard
+        from ..parallel.mesh import DATA_AXIS
+        self.mesh = mesh
+        self.placements = [Shard(0) if n == DATA_AXIS else Replicate()
+                           for n in mesh.mesh_dim_names]
+        self.n = mesh[DATA_AXIS].size()
+
+    def __call__(self, t: Tensor) -> Tensor:
+        from torch.distributed.tensor import DTensor
+        return DTensor.from_local(t, self.mesh, self.placements, run_check=False).full_tensor()
+
+    def shared(self, tree):
+        return map_leaves(tree, lambda _, t: _ScaleGrad.apply(t, 1.0 / self.n))
+
+
+Rows = Optional[RowGather]
+
 def compute_loss(params: dict, model_cfg: ModelConfig, train_cfg: TrainConfig,
                  batch: dict, *, generator: Optional[torch.Generator] = None,
-                 deterministic: bool = False):
+                 deterministic: bool = False, rows: Rows = None):
     """(loss, StepMetrics) of one batch; training draws dropout and
     SpecAugment from `generator`. The eval forward (deterministic=True)
     takes the classifier's kernel, which has no backward: on the card it
-    raises under autograd."""
+    raises under autograd. `rows` (a RowGather of the mesh) makes the loss
+    the global batch's when `batch` holds this rank's rows; the anchor pull,
+    a mean over each rank's rows, becomes the mean over the ranks (equal
+    row counts)."""
     if train_cfg.freeze_backbones:
         params = stop_backbone_gradients(params)
     out = mdl.model_forward(params, model_cfg, batch, deterministic=deterministic,
                             generator=generator, use_openmax=False,
                             spec_augment=not deterministic)
     labels = to_device(batch["labels"], out.logits.device).long()
-    zero = torch.zeros((), device=out.logits.device)
-    ce = losses.label_smoothing_cross_entropy(out.logits, labels,
+    logits, uncertainty, fused, anchor = out.logits, out.uncertainty, out.fused, out.anchor_loss
+    if rows is not None:
+        logits, uncertainty, fused, labels = (rows(t) for t in (logits, uncertainty,
+                                                                 fused, labels))
+        anchor = rows(anchor.reshape(1)).mean()
+    zero = torch.zeros((), device=logits.device)
+    ce = losses.label_smoothing_cross_entropy(logits, labels,
                                               smoothing=train_cfg.label_smoothing)
-    focal = losses.class_balanced_focal_loss(out.logits, labels,
+    focal = losses.class_balanced_focal_loss(logits, labels,
                                              num_classes=model_cfg.num_labels,
                                              beta=train_cfg.focal_beta,
                                              gamma=train_cfg.focal_gamma)
-    unc = losses.uncertainty_regularizer(out.uncertainty, out.logits, labels)
-    loss = (ce + train_cfg.focal_weight * focal + train_cfg.anchor_weight * out.anchor_loss
+    unc = losses.uncertainty_regularizer(uncertainty, logits, labels)
+    loss = (ce + train_cfg.focal_weight * focal + train_cfg.anchor_weight * anchor
             + train_cfg.uncertainty_weight * unc)
     proto = sup = zero
     if train_cfg.proto_weight > 0:
-        fused = out.fused
+        emb = fused
         if train_cfg.proto_l2_normalize:
             # train_crema.py:330: the prototype loss on the L2-normalised fused vector
-            fused = fused / torch.linalg.vector_norm(fused, dim=-1, keepdim=True).clamp(min=1e-8)
-        proto = protos.prototype_loss(params["prototypes"], fused, labels)
+            emb = emb / torch.linalg.vector_norm(emb, dim=-1, keepdim=True).clamp(min=1e-8)
+        proto_params = params["prototypes"] if rows is None else rows.shared(
+            params["prototypes"])
+        proto = protos.prototype_loss(proto_params, emb, labels)
         loss = loss + train_cfg.proto_term_weight * proto
     if train_cfg.supcon_weight > 0:
-        sup = losses.supcon_loss(out.fused, labels)
+        sup = losses.supcon_loss(fused, labels)
         loss = loss + train_cfg.supcon_weight * sup
-    acc = (out.logits.argmax(-1) == labels).float().mean()
-    return loss, StepMetrics(loss=loss, ce=ce, focal=focal, anchor=out.anchor_loss,
+    acc = (logits.argmax(-1) == labels).float().mean()
+    return loss, StepMetrics(loss=loss, ce=ce, focal=focal, anchor=anchor,
                              uncertainty=unc, proto=proto, supcon=sup, accuracy=acc)
 
 
-def global_norm(tensors: List[Tensor]) -> Tensor:
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
+def sharded_mesh(params: dict):
+    """The mesh of a tree of DTensors (parallel/mesh.shard_params), or None
+    for plain tensors."""
+    from torch.distributed.tensor import DTensor
+    leaf = params["classifier"]["input_proj"]["kernel"]
+    return leaf.device_mesh if isinstance(leaf, DTensor) else None
+
+
+def trainable_view(params: dict, paths: List[str], mesh) -> Tuple[dict, List[Tensor]]:
+    """(the tree with each leaf at `paths` a detached alias that wants a
+    gradient, those aliases in `paths` order). Under a mesh every leaf is
+    gathered whole first (no gradient through the gather). The caller's
+    tensors never carry autograd state."""
+    wanted, leaves = set(paths), {}
+
+    def alias(path, t):
+        if mesh is not None:
+            with torch.no_grad():
+                t = t.full_tensor()
+        if path not in wanted:
+            return t
+        leaves[path] = t.detach().requires_grad_(True)
+        return leaves[path]
+
+    view = map_leaves(params, alias)
+    return view, [leaves[p] for p in paths]
+
+
+def reduce_grads(grads: List[Tensor], params: List[Tensor], mesh) -> List[Tensor]:
+    """Under a mesh, each whole-tensor gradient (this rank's rows' share)
+    summed over 'data' into its parameter's placements (a reduce-scatter
+    where the parameter is sharded on 'data', an all-reduce where it is
+    not); otherwise the gradients as they are."""
+    if mesh is None:
+        return list(grads)
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    from ..parallel.mesh import DATA_AXIS
+    partial = [Partial() if n == DATA_AXIS else Replicate() for n in mesh.mesh_dim_names]
+    return [DTensor.from_local(g, mesh, partial, run_check=False).redistribute(
+        mesh, p.placements) for g, p in zip(grads, params)]
+
+
+@torch.no_grad()
+def _zero_unless(ok: Tensor, g: Tensor) -> Tensor:
+    """g where ok holds, else zeros (on the local shard of a DTensor)."""
+    loc = local(g)
+    if loc is g:
+        return torch.where(ok, g, 0.0)
+    loc.copy_(torch.where(ok, loc, 0.0))
+    return g
 
 
 def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig, optimizer: AdamW, *,
@@ -128,43 +240,41 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig, optimizer: A
             speed_per_batch=train_cfg.augment_speed_per_batch)
         return {**mb, "audio": wave, "audio_mask": mask}
 
-    def loss_fn(p: dict, mb: dict, gate: Optional[Tensor]):
-        loss, metrics = compute_loss(p, model_cfg, train_cfg, mb, generator=generator)
+    def loss_fn(p: dict, mb: dict, gate: Optional[Tensor], rows: Rows):
+        loss, metrics = compute_loss(p, model_cfg, train_cfg, mb, generator=generator,
+                                     rows=rows)
         if consistency:
             # train_crema_final.py:283-292: a second forward on another
             # augmented view, its CE added on the gated steps
             fwd = stop_backbone_gradients(p) if train_cfg.freeze_backbones else p
             out2 = mdl.model_forward(fwd, model_cfg, augment(mb), deterministic=False,
                                      generator=generator)
+            logits2, labels2 = out2.logits, mb["labels"]
+            if rows is not None:
+                logits2, labels2 = rows(logits2), rows(labels2)
             ce2 = losses.label_smoothing_cross_entropy(
-                out2.logits, mb["labels"], smoothing=train_cfg.label_smoothing)
+                logits2, labels2, smoothing=train_cfg.label_smoothing)
             loss = loss + torch.where(gate, train_cfg.consistency_aug_weight * ce2, 0.0)
             metrics = metrics._replace(loss=loss)
         return loss, metrics
 
     def step(params: dict, opt_state: dict, batch: dict, seed: int) -> StepMetrics:
         params_on(params, dev)
-        batch = {k: to_device(v, dev) for k, v in batch.items()}
+        mesh = sharded_mesh(params)
+        gather_rows = RowGather(mesh) if mesh is not None else None
+        batch = {k: to_device(local(v), dev) for k, v in batch.items()}
         generator.manual_seed(seed)
         host_generator.manual_seed(seed)
         if train_cfg.augment:
             batch = augment(batch)
         gate = (torch.rand((), generator=generator, device=dev)
                 < train_cfg.consistency_aug_fraction) if consistency else None
-        paths = [p for p, _ in optimizer.trainable(params)]
-        wanted, leaves = set(paths), {}
-
-        def alias(path, t):
-            if path not in wanted:
-                return t
-            leaves[path] = t.detach().requires_grad_(True)
-            return leaves[path]
-
-        view = map_leaves(params, alias)
-        inputs = [leaves[p] for p in paths]
+        trainable = optimizer.trainable(params)
+        paths = [p for p, _ in trainable]
+        view, inputs = trainable_view(params, paths, mesh)
 
         def grads_of(mb):
-            loss, metrics = loss_fn(view, mb, gate)
+            loss, metrics = loss_fn(view, mb, gate, gather_rows)
             return torch.autograd.grad(loss, inputs, allow_unused=True,
                                        materialize_grads=True), metrics
 
@@ -188,8 +298,9 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig, optimizer: A
                     torch._foreach_add_(grads, g)
             torch._foreach_div_(grads, float(accum))
             metrics = StepMetrics(*(torch.stack(v).mean() for v in zip(*per_micro)))
+        grads = reduce_grads(grads, [p for _, p in trainable], mesh)
         ok = torch.isfinite(global_norm(grads)) & torch.isfinite(metrics.loss)
-        grads = [torch.where(ok, g, 0.0) for g in grads]
+        grads = [_zero_unless(ok, g) for g in grads]
         optimizer.apply_(params, dict(zip(paths, grads)), opt_state, ok)
         return StepMetrics(*(v.detach() for v in metrics))
 

@@ -263,7 +263,6 @@ def test_eval_cli_use_asr_builds_the_repo_cli_config(clips, monkeypatch, tmp_pat
     monkeypatch.setattr(tev, "evaluate_manifest", capture("port"))
     eval_cli.main(["--checkpoint", str(tmp_path / "port"), "--device", "cpu"] + args)
     want = json.loads(jcfg.to_json(captured["jax"]))
-    del want["mesh"]
     assert json.loads(tcfg.to_json(captured["port"])) == want
     assert captured["port"].model.use_asr and captured["port"].data.emit_asr_feats
 

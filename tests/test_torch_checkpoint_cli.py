@@ -132,7 +132,6 @@ def test_import_cli_exits_on_use_asr(imported, monkeypatch):
     jax_cli["main"]()
     got = json.loads(tckpt.load_config_json(root / "asr"))
     want = json.loads((root / "asr_jax" / "config.json").read_text())
-    del want["mesh"]  # the port has no mesh section
     assert got == want
     assert got["model"]["use_asr"] is True
     params, _ = tckpt.restore_checkpoint(root / "asr", device="cpu")
@@ -265,7 +264,6 @@ def test_train_cli_builds_the_large_presets(preset, monkeypatch, tmp_path):
     monkeypatch.setattr(tloop, "train", capture("port"))
     train_cli.main(args + ["--device", "cpu"])
     want = json.loads(jcfg.to_json(captured["jax"][0]))
-    del want["mesh"]
     assert json.loads(tcfg.to_json(captured["port"][0])) == want
     assert captured["port"][0].model.audio == tcfg.AUDIO_BACKBONE_PRESETS[preset]()
     assert captured["port"][1] is None

@@ -1,7 +1,7 @@
 """The port's train/distill.py against the JAX package's on the CPU.
 
 Student presets give the JAX package's configs (the whole Config's JSON,
-whose `mesh` section the port does not have); the KD loss is held at
+its `mesh` section included); the KD loss is held at
 1e-6; one distillation step of a dropout-free student under a tiny
 teacher, with and without feature matching, at 1e-5 for the loss terms
 and the train-step parity tolerance (1e-4) for the updated leaves
@@ -49,8 +49,7 @@ def test_student_model_config_matches_jax(preset, teacher):
         model=jdst.student_model_config(jteacher, preset))))
     student = tdst.student_model_config(port_config(jteacher), preset)
     got = json.loads(tcfg.to_json(tcfg.Config(model=student)))
-    assert "mesh" in want and "mesh" not in got
-    del want["mesh"]
+    assert "mesh" in want and "mesh" in got
     assert got == want
     with pytest.raises(ValueError, match="preset"):
         tdst.student_model_config(port_config(jteacher), "huge")

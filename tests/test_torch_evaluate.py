@@ -51,6 +51,9 @@ from test_model import tiny_config
 from test_torch_audio_dsp import exact_speed_perturb_length
 from torch_port_helpers import assert_close, perturb
 from torch_port_helpers import offline_hub  # noqa: F401  (a fixture)
+from torch_port_helpers import one_torch_thread
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 REPO = Path(__file__).resolve().parents[1]
 SR = 16000

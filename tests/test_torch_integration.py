@@ -178,7 +178,8 @@ def init_bound(path, leaf, tree):
 def test_positional_encoding_and_init_match_jax():
     np.testing.assert_array_equal(ttm.positional_encoding(10, 16), jtm.positional_encoding(10, 16))
     jp = jax.tree.map(np.asarray, jtm.init_temporal_module(jax.random.key(0), 16, 4))
-    tp = ttm.init_temporal_module(16, 4, generator=torch.Generator().manual_seed(0))
+    tp = ttm.init_temporal_module(16, 4, generator=torch.Generator().manual_seed(0),
+                                  device="cpu")
     jflat = dict(jax.tree_util.tree_flatten_with_path(jp)[0])
     tflat = dict(jax.tree_util.tree_flatten_with_path(tp, is_leaf=torch.is_tensor)[0])
     assert jflat.keys() == tflat.keys()
@@ -229,7 +230,7 @@ def test_confidence_smoothing_and_speaker_change_match_jax(temporal_params):
 def test_temporal_steps_match_jax(temporal_params):
     """Five steps through the buffer (it fills at 3, then rolls)."""
     jp, tp = temporal_params
-    state, jstate = ttm.init_buffer(2, 16), jtm.init_buffer(2, 16)
+    state, jstate = ttm.init_buffer(2, 16, device="cpu"), jtm.init_buffer(2, 16)
     for step in range(5):
         feat = RNG.standard_normal((2, 16)).astype(np.float32)
         conf = RNG.random((2, 1)).astype(np.float32)

@@ -29,6 +29,9 @@ from multilingual_multimodal_speech_emotion_recognition_tpu_torch.ops import con
 
 from test_model import tiny_batch, tiny_config
 from torch_port_helpers import META, assert_close, bridge, j, perturb, t
+from torch_port_helpers import one_torch_thread
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 RNG = np.random.default_rng(23)
 PRESETS = ("wav2vec2-large", "hubert-large", "wavlm-large")

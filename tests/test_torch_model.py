@@ -26,6 +26,9 @@ from multilingual_multimodal_speech_emotion_recognition_tpu_torch.models import 
 from test_model import tiny_batch, tiny_config
 from test_torch_frontend import dsp_batch
 from torch_port_helpers import assert_close
+from torch_port_helpers import one_torch_thread
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "multilingual_multimodal_speech_emotion_recognition_tpu_torch"

@@ -34,6 +34,9 @@ from multilingual_multimodal_speech_emotion_recognition_tpu_torch.utils.runtime 
 
 from test_model import tiny_config
 from test_torch_large_backbones import tiny_audio
+from torch_port_helpers import one_torch_thread
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 RNG = np.random.default_rng(31)
 WHISPER = jw.WhisperConfig(vocab_size=320, num_mel_bins=80, d_model=32,

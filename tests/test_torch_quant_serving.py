@@ -39,6 +39,9 @@ from multilingual_multimodal_speech_emotion_recognition_tpu_torch.train import (
 from test_model import tiny_batch, tiny_config
 from test_torch_quant import _assert_same_quantised_leaves, _jax_params, _jax_quantised, _numpy
 from torch_port_helpers import assert_close, perturb
+from torch_port_helpers import one_torch_thread
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 INT8_TOL = 1e-3       # of the mean |logit|
 EXPORT_TOL = 1e-5

@@ -126,7 +126,7 @@ def test_noise_sweep_draws_one_generator_in_order():
 
         res = trob.evaluate_noise_robustness(predict, batches, snr_levels=(10.0, 0.0),
                                              noise_types=("gaussian", "babble"),
-                                             baseline_f1=0.9, seed=seed)
+                                             baseline_f1=0.9, seed=seed, device="cpu")
         return res, seen
 
     (r1, s1), (r2, s2), (_, s3) = run(0), run(0), run(1)

@@ -33,6 +33,9 @@ from multilingual_multimodal_speech_emotion_recognition_tpu_torch.frontend impor
     lid as lid_mod)
 
 from test_model import tiny_config
+from torch_port_helpers import one_torch_thread
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 # the server is on the loopback: no proxy
 OPENER = urllib.request.build_opener(urllib.request.ProxyHandler({}))

@@ -34,6 +34,9 @@ from multilingual_multimodal_speech_emotion_recognition_tpu_torch.utils import r
 from test_model import tiny_batch, tiny_config
 from test_torch_audio_dsp import exact_speed_perturb_length
 from torch_port_helpers import perturb
+from torch_port_helpers import one_torch_thread
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 LOSS_RTOL = 1e-4
 STEP_TOL = 1e-4

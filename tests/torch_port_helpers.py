@@ -81,3 +81,84 @@ def offline_hub(monkeypatch):
     monkeypatch.setattr(socket.socket, "connect", refuse)
     yield
     assert attempts == [], f"network access attempted: {attempts}"
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _rank_main(rank, world, port, tasks, results):
+    """A rank of RankPool: joins the gloo group, then runs tasks until None."""
+    import importlib
+    import traceback
+
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world)
+    try:
+        while True:
+            task = tasks.get()
+            if task is None:
+                return
+            module, name, args = task
+            try:
+                value = getattr(importlib.import_module(module), name)(*args)
+                results.put((rank, True, value))
+            except BaseException:  # reported to the test, which fails with it
+                results.put((rank, False, traceback.format_exc()))
+    finally:
+        dist.destroy_process_group()
+
+
+class RankPool:
+    """`world` processes joined in one gloo process group on the CPU,
+    spawned once: run(fn, *args) calls the module-level fn(*args) on every
+    rank and returns the ranks' results in rank order, or raises with a
+    failing rank's traceback. Spawning a group costs seconds, so a test
+    module makes one (the `two_ranks` fixture) and runs its checks in it."""
+
+    def __init__(self, world: int = 2):
+        import multiprocessing as mp
+        ctx = mp.get_context("spawn")
+        self.world = world
+        self.tasks = [ctx.Queue() for _ in range(world)]
+        self.results = ctx.Queue()
+        port = _free_port()
+        self.procs = [ctx.Process(target=_rank_main, daemon=True,
+                                  args=(r, world, port, self.tasks[r], self.results))
+                      for r in range(world)]
+        for p in self.procs:
+            p.start()
+
+    def run(self, fn, *args, timeout: float = 180.0):
+        for q in self.tasks:
+            q.put((fn.__module__, fn.__name__, args))
+        got = {}
+        for _ in range(self.world):
+            rank, ok, value = self.results.get(timeout=timeout)
+            got[rank] = (ok, value)
+        failed = [f"rank {r}:\n{v}" for r, (ok, v) in sorted(got.items()) if not ok]
+        if failed:
+            raise AssertionError("\n".join(failed))
+        return [got[r][1] for r in range(self.world)]
+
+    def close(self):
+        for q in self.tasks:
+            q.put(None)
+        for p in self.procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=10)
+
+
+@pytest.fixture(scope="module")
+def two_ranks():
+    """A RankPool of two gloo ranks for the module's tests."""
+    pool = RankPool(2)
+    yield pool
+    pool.close()
