@@ -196,6 +196,28 @@ Phases, one JSON line each:
                 Weibull passes)
               With more than one card the script says that 11c-d ran with
               world 1 only.
+  12. tensor  the 'model' axis's Megatron split (parallel/tensor.py):
+              - 12a. a one-rank NCCL group, mesh (1, 1), on the tensor-
+                parallel code path: the flagship eval forward (B=4, 4 s, 32
+                tokens, bf16, the DSP on) and a frozen B=16 train step
+                against the unsharded ones, 0 difference;
+              - 12b. two ranks on the one card (two processes of this
+                script, gloo: NCCL takes one rank a card; the tensor-
+                parallel path's collectives are all-reduces, which gloo
+                carries for card tensors), mesh (1, 2): the flagship forward
+                against one process (AGREE_TOL in bf16), a frozen B=16 step
+                in f32 by step_card_against_cpu's rule against one process,
+                the ms of each beside one process's (gloo's hops go through
+                the host: a host cost, not NVLink's), A1's launches;
+              - 12c. the same two ranks, mesh (2, 1): the `academic_eval`
+                CLI on 10c's 48 clips and checkpoint against 10c's run:
+                every eval pass's gathered rows (logits, labels, indices,
+                SNRs, features) row for row, labels and indices equal, the
+                rest within AGREE_TOL; every F1 of its JSON and of each
+                rank's results equal, the binned ECE / MCE equal to their
+                value from the run's own rows, the other numbers (but
+                timings and a sweep's arg-optima) within AGREE_TOL; its
+                seconds and A1's launches
 Then the script's wall time, the `kernels` line and, last,
 {"ok": true, "device": {...}}.
 
@@ -2257,7 +2279,8 @@ def academic_phases(torch, wrappers, smi: str, cfg, work: Path) -> int:
     from multilingual_multimodal_speech_emotion_recognition_tpu_torch.config import DataConfig
     from multilingual_multimodal_speech_emotion_recognition_tpu_torch.data import (
         pipeline, tokenizer)
-    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.eval import few_shot
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.eval import (
+        evaluate as ev, few_shot)
     from multilingual_multimodal_speech_emotion_recognition_tpu_torch.ops import (
         residual_stack as rs)
     from multilingual_multimodal_speech_emotion_recognition_tpu_torch.train import distill
@@ -2326,10 +2349,12 @@ def academic_phases(torch, wrappers, smi: str, cfg, work: Path) -> int:
     torch.cuda.reset_peak_memory_stats()
     reset_counts(wrappers)
     t0 = time.perf_counter()
-    res = academic_cli.main(["--checkpoint", str(work / "checkpoint"), "--manifest", manifest,
-                             "--dataset_root", datasets, "--output_dir", str(out_dir),
-                             "--batch_size", "8", *ACADEMIC_ARGS])
+    with PassRows(ev) as passes:   # every pass's rows, kept for phase 12c
+        res = academic_cli.main(["--checkpoint", str(work / "checkpoint"), "--manifest",
+                                 manifest, "--dataset_root", datasets, "--output_dir",
+                                 str(out_dir), "--batch_size", "8", *ACADEMIC_ARGS])
     academic_s = time.perf_counter() - t0
+    passes.save(work / "academic_passes.npz", steps=steps, few_shot_steps=few_shot_steps)
     count = counts(wrappers)
     peak = torch.cuda.max_memory_allocated()
     saved = json.loads((out_dir / "academic_evaluation.json").read_text())
@@ -2757,6 +2782,516 @@ def parallel_phases(torch, wrappers, smi: str, cfg, work: Path, manifest: str) -
                 os.environ[k] = v
     emit({"phase": "path", "path": "research, utils and parallelism (phase 11)",
           "seconds": time.perf_counter() - t_start, "residual_stack_launches": a1})
+    return a1
+
+
+TP_WORKERS = 2          # 12b-c: ranks on the one card
+TP_B = 4                # 12a-b's eval forward
+TP_FORWARDS = 5
+TP_WORKER_TIMEOUT = 420
+TP_ACADEMIC_OUT = "academic_group_out"
+
+
+#: fields of a results JSON that 12c does not hold to one process: timings,
+#: and the arg-optima of a sweep (a rounding can move an optimum to another
+#: point of the curve; the curve's area is held)
+UNHELD_FIELDS = ("part_seconds", "inference_benchmark", "report", "latency", "optimal")
+
+
+def result_numbers(tree, prefix: str = "") -> dict:
+    """Every number and string of a results JSON by path, but UNHELD_FIELDS."""
+    out = {}
+    items = (tree.items() if isinstance(tree, dict)
+             else enumerate(tree) if isinstance(tree, list) else None)
+    if items is None:
+        return {prefix: tree}
+    for k, v in items:
+        path = f"{prefix}/{k}" if prefix else str(k)
+        if not any(word in str(k) for word in UNHELD_FIELDS):
+            out.update(result_numbers(v, path))
+    return out
+
+
+#: fields binned by confidence (15 bins of 1/15): a rounding moves a clip
+#: whose confidence sits on a bin's edge into the next bin, so these are
+#: held to their value recomputed from the run's own gathered rows
+BINNED_FIELDS = ("calibration/ece", "calibration/mce", "calibration/quality")
+
+
+def calibration_of(rows: dict) -> dict:
+    """The battery's calibration fields of the baseline pass's rows, as
+    eval/academic.py computes them."""
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.eval import (
+        academic, calibration)
+    logits = rows["logits"]
+    m = calibration.compute_calibration_metrics(logits.argmax(axis=1), rows["labels"],
+                                                academic._softmax(logits))
+    return {"calibration/ece": m.ece, "calibration/mce": m.mce,
+            "calibration/quality": calibration.calibration_quality(m.ece)}
+
+
+def same(a, b) -> bool:
+    """a == b, a NaN equal to a NaN."""
+    return a == b or (isinstance(a, float) and isinstance(b, float) and a != a and b != b)
+
+
+def check_results(got: dict, want: dict, got_rows: dict, tol: float):
+    """A results JSON against another: the same fields; the F1s, integers
+    and strings equal; BINNED_FIELDS equal to their value recomputed from
+    `got_rows` (the baseline pass's gathered rows); every other number
+    within tol (rtol = atol = tol). (the largest difference of those, every
+    field out of bounds)."""
+    got, want = result_numbers(got), result_numbers(want)
+    if got.keys() != want.keys():
+        return 0.0, [f"fields {sorted(got.keys() ^ want.keys())} differ"]
+    own, worst, bad = calibration_of(got_rows), 0.0, []
+    for path, w in want.items():
+        g = got[path]
+        if path in BINNED_FIELDS:
+            if not same(g, own[path]):
+                bad.append(f"{path} is {g}, its rows give {own[path]}")
+        elif "f1" in path or not isinstance(w, float) or w != w:
+            if not same(g, w):
+                bad.append(f"{path} is {g}, not {w}")
+        else:
+            worst = max(worst, abs(g - w))
+            if not abs(g - w) <= tol * (1 + abs(w)):
+                bad.append(f"{path} is {g}, not {w} within {tol}")
+    return worst, bad
+
+
+class PassRows:
+    """While entered, every eval pass's gathered host rows (the logits, the
+    labels, the row indices, the SNRs), in the order the battery gathers
+    them: eval/evaluate.gather_rows, which each pass calls, on one process
+    too. `save` writes them as one .npz, `load` reads them back."""
+
+    def __init__(self, ev):
+        self.ev, self.passes = ev, []
+
+    def __enter__(self):
+        gather = self.gather = self.ev.gather_rows
+
+        def kept(rows, *args, **kwargs):
+            out = gather(rows, *args, **kwargs)
+            self.passes.append({k: np.asarray(v) for k, v in out.items()})
+            return out
+
+        self.ev.gather_rows = kept
+        return self
+
+    def __exit__(self, *exc):
+        self.ev.gather_rows = self.gather
+        return False
+
+    def save(self, path: Path, **extra) -> None:
+        np.savez(path, **extra, **{f"{i}/{k}": v for i, rows in enumerate(self.passes)
+                                   for k, v in rows.items()})
+
+    @staticmethod
+    def load(path: Path) -> list:
+        data = np.load(path)
+        passes = {}
+        for key in data.files:
+            if "/" in key:
+                i, k = key.split("/")
+                passes.setdefault(int(i), {})[k] = data[key]
+        return [passes[i] for i in sorted(passes)]
+
+
+def check_passes(got: list, want: list, tol: float):
+    """Each pass's rows against one process's, row for row: integer columns
+    equal; in float ones the same entries NaN or infinite, with the same
+    values, and the finite ones within tol (rtol = atol = tol). (the
+    largest difference, the non-finite entries of each pass that has any,
+    every column out of bounds)."""
+    if [sorted(p) for p in got] != [sorted(p) for p in want]:
+        return 0.0, {}, [f"{len(got)} passes gathered {[sorted(p) for p in got]}, one "
+                         f"process {len(want)}: {[sorted(p) for p in want]}"]
+    worst, nonfinite, bad = 0.0, {}, []
+    for i, (g, w) in enumerate(zip(got, want)):
+        for k, wv in w.items():
+            gv, where = g[k], f"pass {i}'s {k}"
+            if gv.shape != wv.shape:
+                bad.append(f"{where} is {gv.shape}, not {wv.shape}")
+            elif not np.issubdtype(wv.dtype, np.floating):
+                if not np.array_equal(gv, wv):
+                    bad.append(f"{where} differs in {int((gv != wv).sum())} entries")
+            else:
+                odd = ~np.isfinite(wv)
+                if odd.any():
+                    nonfinite[f"{i}/{k}"] = int(odd.sum())
+                if not (np.array_equal(~np.isfinite(gv), odd)
+                        and np.array_equal(gv[odd], wv[odd], equal_nan=True)):
+                    bad.append(f"{where}: {int((~np.isfinite(gv)).sum())} entries NaN or "
+                               f"infinite, one process {int(odd.sum())}")
+                    continue
+                diff = np.abs(gv[~odd].astype(np.float64) - wv[~odd])
+                if diff.size:
+                    worst = max(worst, float(diff.max()))
+                    if (diff > tol * (1 + np.abs(wv[~odd]))).any():
+                        bad.append(f"{where}: max |got - want| {float(diff.max())} over {tol}")
+    return worst, nonfinite, bad
+
+
+def capture_grads(opt, into: dict):
+    """opt.apply_ wrapped to keep the gradients each step hands it."""
+    apply_ = opt.apply_
+
+    def wrapped(params, grads, state, ok=None):
+        into.clear()
+        into.update(grads)
+        return apply_(params, grads, state, ok)
+    opt.apply_ = wrapped
+
+
+def tp_flagship_batch(torch, cfg, B: int, labels: bool = False) -> dict:
+    """example_batch without front-end features (the DSP runs), on the card."""
+    host = example_batch(B, T=CLIP_SAMPLES, S=TEXT_TOKENS, vocab=cfg.text.vocab_size)
+    del host["quality_feats"], host["cond_feats"]
+    if labels:
+        host["labels"] = np.arange(B, dtype=np.int32) % cfg.num_labels
+    return {k: torch.from_numpy(v).cuda() for k, v in host.items()}
+
+
+def tp_worker(rank: int, port: int, work: Path) -> int:
+    """One of 12b-c's ranks: two processes of this script on the one card,
+    joined by gloo. Writes rank{rank}.pt (12b) and rank{rank}_academic.json
+    (12c) into `work`."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.cli import (
+        academic_eval as academic_cli)
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.config import (
+        ModelConfig, TrainConfig)
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.eval import (
+        evaluate as ev)
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.models import (
+        model as mdl)
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.ops import (
+        residual_stack as rs)
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.parallel import (
+        mesh as mesh_lib, tensor)
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.train import (
+        optimizer as opt_lib, train_step as ts)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=TP_WORKERS)
+    try:
+        # 12b. mesh (1, 2): the flagship forward, then a frozen f32 step
+        cfg = ModelConfig(compute_dtype="bfloat16")
+        params = mdl.init_model(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+        mesh = mesh_lib.make_mesh(data=1, model=TP_WORKERS, device="cuda")
+        sharded = mesh_lib.shard_params(params, mesh)
+        del params
+        view, tp = tensor.split(sharded)
+        batch = tp_flagship_batch(torch, cfg, TP_B)
+        with torch.inference_mode():
+            mdl.model_forward(view, cfg, batch, tp=tp)
+            torch.cuda.synchronize()
+            rs.residual_stack.launches = 0
+            times = []
+            for _ in range(TP_FORWARDS):
+                t0 = time.perf_counter()
+                logits = mdl.model_forward(view, cfg, batch, tp=tp).logits.cpu()
+                times.append(1e3 * (time.perf_counter() - t0))
+        forward = {"ms_all": times, "launches": rs.residual_stack.launches, "logits": logits}
+
+        f32 = dataclasses.replace(cfg, compute_dtype="float32")
+        tcfg = TrainConfig(batch_size=TRAIN_B, augment=True)
+        opt = opt_lib.make_train_optimizer(sharded, lr=TRAIN_LR, total_steps=100)
+        state = opt.init(sharded)
+        grads = {}
+        capture_grads(opt, grads)
+        step = ts.make_train_step(f32, tcfg, opt, device="cuda")
+        train_batch = mesh_lib.shard_batch(tp_flagship_batch(torch, cfg, TRAIN_B, True), mesh)
+        metrics = step(sharded, state, train_batch, 0)
+        model_dim = mesh.mesh_dim_names.index(mesh_lib.MODEL_AXIS)
+
+        def local(tree: dict) -> dict:
+            # each leaf's local part and the dimension the 'model' axis splits
+            out = {}
+            for path, t in tree.items():
+                pl = t.placements[model_dim]
+                out[path] = (t.to_local().detach().cpu(), pl.dim if pl.is_shard() else None)
+            return out
+
+        trained = dict(opt.trainable(sharded))
+        result = {"forward": forward, "loss": metrics.loss.cpu(), "grads": local(grads),
+                  "params": local(trained)}
+        state = opt.init(sharded)
+        seeds = iter(range(1, 100))
+        step_times = []
+        for _ in range(TRAIN_WARMUP + TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(sharded, state, train_batch, next(seeds))
+            torch.cuda.synchronize()
+            step_times.append(1e3 * (time.perf_counter() - t0))
+        result["step_ms_all"] = step_times[TRAIN_WARMUP:]
+        torch.save(result, work / f"rank{rank}.pt")
+        del sharded, view, state, opt, step, train_batch, grads, trained, result
+        torch.cuda.empty_cache()
+
+        # 12c. the academic_eval CLI under the group, mesh (2, 1) from the
+        # checkpoint's config; every pass's gathered rows kept
+        manifest = str(work / "academic" / "manifest.jsonl")
+        rs.residual_stack.launches = 0
+        t0 = time.perf_counter()
+        with PassRows(ev) as passes:
+            res = academic_cli.main(["--checkpoint", str(work / "checkpoint"), "--manifest",
+                                     manifest, "--dataset_root",
+                                     str(work / "academic" / "datasets"),
+                                     "--output_dir", str(work / TP_ACADEMIC_OUT),
+                                     "--batch_size", "8", *ACADEMIC_ARGS])
+        seconds = time.perf_counter() - t0
+        passes.save(work / f"rank{rank}_passes.npz")
+        (work / f"rank{rank}_academic.json").write_text(json.dumps({
+            "seconds": seconds, "launches": rs.residual_stack.launches,
+            "num_samples": res["baseline"]["num_samples"],
+            "results": {k: v for k, v in res.items() if k != "report"}},
+            default=lambda o: o.tolist() if hasattr(o, "tolist") else str(o)))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def tensor_parallel_phases(torch, wrappers, smi: str, cfg, work: Path) -> int:
+    """Phase 12 (see the module docstring) on phase 10c's checkpoint, clips
+    and results. Returns A1's launches on the paths it drives (12a's
+    forwards, 12b's forwards on rank 0, 12c's CLI on rank 0)."""
+    import dataclasses
+    import os
+    import torch.distributed as dist
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.config import TrainConfig
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.models import (
+        model as mdl)
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.parallel import (
+        mesh as mesh_lib, multihost as mh, tensor)
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.train import (
+        optimizer as opt_lib, train_step as ts)
+    t_start = time.perf_counter()
+    dev = torch.device("cuda")
+    a1 = 0
+    median = lambda ms: sorted(ms)[len(ms) // 2]
+
+    # 12a. a one-rank NCCL group, mesh (1, 1): the tensor-parallel path
+    # against the unsharded one, bitwise
+    env = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port()), "RANK": "0",
+           "WORLD_SIZE": "1", "LOCAL_RANK": "0"}
+    saved_env = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    params = mdl.init_model(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    try:
+        if not mh.initialize():
+            raise AssertionError("12a: multihost.initialize brought up no group")
+        backend = dist.get_backend()
+        mesh = mesh_lib.make_mesh(data=1, model=1)
+        batch = tp_flagship_batch(torch, cfg, TP_B)
+        sharded = mesh_lib.shard_params(cloned(params), mesh)
+        reset_counts(wrappers)
+        with torch.inference_mode():
+            plain = mdl.model_forward(params, cfg, batch).logits
+            view, tp = tensor.split(sharded)
+            got = mdl.model_forward(view, cfg, batch, tp=tp).logits
+        forward_diff = float((got - plain).abs().max())
+        if not torch.equal(got, plain):
+            raise AssertionError(f"12a: the tensor-parallel forward on a (1, 1) mesh is "
+                                 f"{forward_diff} off the unsharded one")
+        count = counts(wrappers)["residual_stack"]
+        if count != 2:
+            raise AssertionError(f"12a: residual_stack launched {count} times in 2 forwards")
+        a1 += count
+        tcfg = TrainConfig(batch_size=TRAIN_B, augment=True)
+        opt = opt_lib.make_train_optimizer(params, lr=TRAIN_LR, total_steps=100)
+        train_batch = tp_flagship_batch(torch, cfg, TRAIN_B, labels=True)
+        plain_p, plain_s = params, opt.init(params)
+        m_plain = ts.make_train_step(cfg, tcfg, opt, device=dev)(plain_p, plain_s,
+                                                                 train_batch, 0)
+        tp_s = opt.init(sharded)
+        m_tp = ts.make_train_step(cfg, tcfg, opt, device=dev)(
+            sharded, tp_s, mesh_lib.shard_batch(train_batch, mesh), 0)
+        step_diff = {"loss": float((m_tp.loss - m_plain.loss).abs())}
+        whole = dict(tree_leaves(mh.host_replicated(sharded)))
+        step_diff["params"] = max(float((whole[p] - t).abs().max())
+                                  for p, t in tree_leaves(plain_p))
+        if not torch.equal(m_tp.loss, m_plain.loss) or step_diff["params"] != 0.0:
+            raise AssertionError(f"12a: the tensor-parallel step on a (1, 1) mesh differs from "
+                                 f"the unsharded one: {step_diff}")
+        emit({"phase": "path", "path": "tensor-parallel code path on a one-rank mesh (1, 1) "
+              "vs unsharded", "card": smi, "backend": backend, "B": TP_B, "train_B": TRAIN_B,
+              "seconds": CLIP_SAMPLES / SAMPLE_RATE, "text_tokens": TEXT_TOKENS,
+              "dtype": cfg.compute_dtype, "frontend_dsp": True,
+              "forward_max_abs_diff": forward_diff, "step_max_abs_diff": step_diff,
+              "launches": count})
+        del plain, got, sharded, view, plain_p, plain_s, tp_s, whole, opt
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    torch.cuda.empty_cache()
+
+    # 12b's one-process references on the card: the same forward, and the
+    # frozen step in f32 from the same parameters and optimizer state
+    params = mdl.init_model(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    batch = tp_flagship_batch(torch, cfg, TP_B)
+    with torch.inference_mode():
+        mdl.model_forward(params, cfg, batch)
+        torch.cuda.synchronize()
+        one_ms = []
+        for _ in range(TP_FORWARDS):
+            t0 = time.perf_counter()
+            one_logits = mdl.model_forward(params, cfg, batch).logits.cpu()
+            one_ms.append(1e3 * (time.perf_counter() - t0))
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    tcfg = TrainConfig(batch_size=TRAIN_B, augment=True)
+    opt = opt_lib.make_train_optimizer(params, lr=TRAIN_LR, total_steps=100)
+    state = opt.init(params)
+    state_cpu = {"count": state["count"].cpu(),
+                 "mu": {p: t.cpu() for p, t in state["mu"].items()},
+                 "nu": {p: t.cpu() for p, t in state["nu"].items()}}
+    grads = {}
+    capture_grads(opt, grads)
+    step = ts.make_train_step(f32, tcfg, opt, device=dev)
+    train_batch = tp_flagship_batch(torch, cfg, TRAIN_B, labels=True)
+    metrics = step(params, state, train_batch, 0)
+    one = {"loss": metrics.loss.cpu(), "grads": {p: g.cpu() for p, g in grads.items()},
+           "params": {p: t.detach().cpu() for p, t in opt.trainable(params)}}
+    state = opt.init(params)
+    seeds = iter(range(1, 100))
+    one_step_ms = []
+    for _ in range(TRAIN_WARMUP + TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(params, state, train_batch, next(seeds))
+        torch.cuda.synchronize()
+        one_step_ms.append(1e3 * (time.perf_counter() - t0))
+    one_step_ms = one_step_ms[TRAIN_WARMUP:]
+    del params, state, step, train_batch, grads
+    torch.cuda.empty_cache()
+
+    # 12b-c on two ranks: two processes of this script on the one card
+    port = free_port()
+    logs = [open(work / f"rank{r}.log", "w") for r in range(TP_WORKERS)]
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--tp-worker",
+                               str(r), str(port), str(work)], stdout=logs[r],
+                              stderr=subprocess.STDOUT) for r in range(TP_WORKERS)]
+    t0 = time.perf_counter()
+    try:
+        codes = [p.wait(timeout=TP_WORKER_TIMEOUT) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    workers_s = time.perf_counter() - t0
+    if any(codes):
+        tails = {r: (work / f"rank{r}.log").read_text()[-3000:] for r in range(TP_WORKERS)}
+        raise AssertionError(f"12b-c: the two ranks exited {codes}:\n" + "\n".join(
+            f"--- rank {r} ---\n{t}" for r, t in tails.items()))
+
+    # 12b. the two-rank forward and step against one process
+    ranks = [torch.load(work / f"rank{r}.pt", weights_only=False) for r in range(TP_WORKERS)]
+    forward_err = check_close("12b two-rank forward vs one process", ranks[0]["forward"]["logits"],
+                              one_logits, AGREE_TOL["bfloat16"])
+    if not torch.equal(ranks[0]["forward"]["logits"], ranks[1]["forward"]["logits"]):
+        raise AssertionError("12b: the two ranks' logits differ")
+
+    def whole(key: str) -> dict:
+        out = {}
+        for path, (t, dim) in ranks[0][key].items():
+            out[path] = t if dim is None else torch.cat([r[key][path][0] for r in ranks], dim)
+        return out
+
+    tp_result = {"loss": ranks[0]["loss"], "grads": whole("grads"), "params": whole("params")}
+    step_errs = step_card_against_cpu(torch, opt, state_cpu, tp_result, one)
+    a1 += ranks[0]["forward"]["launches"]
+    if ranks[0]["forward"]["launches"] != TP_FORWARDS:
+        raise AssertionError(f"12b: residual_stack launched {ranks[0]['forward']['launches']} "
+                             f"times in {TP_FORWARDS} forwards")
+    emit({"phase": "path", "path": "tensor parallel, two gloo ranks on one card, mesh (1, 2), "
+          "vs one process", "card": smi, "B": TP_B, "train_B": TRAIN_B,
+          "seconds": CLIP_SAMPLES / SAMPLE_RATE, "text_tokens": TEXT_TOKENS,
+          "forward": {"dtype": cfg.compute_dtype, "frontend_dsp": True,
+                      "tol": AGREE_TOL["bfloat16"], "max_abs_diff": forward_err,
+                      "ms": median(ranks[0]["forward"]["ms_all"]),
+                      "one_process_ms": median(one_ms),
+                      "ms_all": ranks[0]["forward"]["ms_all"], "one_process_ms_all": one_ms},
+          "step": {"dtype": "float32", "frozen_backbones": True, "tol": TRAIN_TOL,
+                   "max_abs_diff": step_errs, "ms": median(ranks[0]["step_ms_all"]),
+                   "one_process_ms": median(one_step_ms),
+                   "ms_all": ranks[0]["step_ms_all"], "one_process_ms_all": one_step_ms},
+          "collectives": "gloo all-reduces through the host (a host cost, not NVLink's)",
+          "launches": {"residual_stack": ranks[0]["forward"]["launches"]}})
+
+    # 12c. the academic_eval CLI on two ranks against 10c's one process
+    acad = [json.loads((work / f"rank{r}_academic.json").read_text())
+            for r in range(TP_WORKERS)]
+    one_json = json.loads((work / "academic_out" / "academic_evaluation.json").read_text())
+    group_json = json.loads((work / TP_ACADEMIC_OUT / "academic_evaluation.json").read_text())
+    bad = []
+    # 10c's checkpoint predicts one class for nearly every clip, so equal
+    # F1s alone would let a wrong noise draw, row order or gather through.
+    # Every pass's gathered rows, row for row: labels and indices equal,
+    # logits (and SNRs, features) within AGREE_TOL
+    one_passes = PassRows.load(work / "academic_passes.npz")
+    one_base = np.load(work / "academic_passes.npz")
+    rank_passes = [PassRows.load(work / f"rank{r}_passes.npz") for r in range(TP_WORKERS)]
+    logits_err, nonfinite = 0.0, {}
+    for r, passes in enumerate(rank_passes):
+        err, nonfinite, out = check_passes(passes, one_passes, AGREE_TOL["bfloat16"])
+        logits_err = max(logits_err, err)
+        bad += [f"rank {r}: {b}" for b in out]
+    # the JSON rank 0 wrote and each rank's results: 10c's F1s exactly, the
+    # binned calibration fields from the run's own rows, the other numbers
+    # (AUROC / AUPR, per-SNR, few-shot, ...) within AGREE_TOL
+    bad += [f"10c: {k} is {one_json['calibration'][k.split('/')[1]]}, its rows give {v}"
+           for k, v in calibration_of(one_passes[0]).items()
+           if not same(one_json["calibration"][k.split("/")[1]], v)]
+    fields_err = 0.0
+    for name, got, passes in [("JSON", group_json, rank_passes[0])] + [
+            (f"rank {r}", a["results"], rank_passes[r]) for r, a in enumerate(acad)]:
+        err, out = check_results(got, one_json, passes[0], AGREE_TOL["bfloat16"])
+        fields_err = max(fields_err, err)
+        bad += [f"{name}: {b}" for b in out]
+    if bad:
+        raise AssertionError("12c: the two-rank battery's results differ from 10c's: "
+                             + "; ".join(bad) + f" (10c's non-finite entries: {nonfinite})")
+    # each rank's batches hold 4 of the 8 rows: the benchmark runs B 1 and 4
+    rows = 8 // TP_WORKERS
+    bench_sizes = len({1, min(4, rows), min(8, rows), rows})
+    want_a1 = ((2 + 3 * 2 + 2 * 5 + 3) * int(one_base["steps"]) + 7 * bench_sizes
+               + int(one_base["few_shot_steps"]))
+    if acad[0]["num_samples"] != MANIFEST_CLIPS or any(a["launches"] != want_a1 for a in acad):
+        raise AssertionError(f"12c: {acad[0]['num_samples']} samples, residual_stack launched "
+                             f"{[a['launches'] for a in acad]} times, not once in each of "
+                             f"{want_a1} eval forwards a rank")
+    a1 += acad[0]["launches"]
+    emit({"phase": "path", "path": "academic_eval CLI on two gloo ranks on one card, mesh "
+          "(2, 1), vs 10c's one process", "card": smi, "clips": MANIFEST_CLIPS,
+          "batch_size": 8, "args": " ".join(ACADEMIC_ARGS), "cli_s": acad[0]["seconds"],
+          "cli_s_by_rank": [a["seconds"] for a in acad],
+          "f1_fields": len([k for k in result_numbers(one_json) if "f1" in k]),
+          "fields_held": len(result_numbers(one_json)), "f1_equal": True,
+          "fields_tol": AGREE_TOL["bfloat16"], "fields_max_abs_diff": fields_err,
+          "calibration": {"one_process": calibration_of(one_passes[0]),
+                          "two_ranks": calibration_of(rank_passes[0][0])},
+          "passes_held": len(one_passes), "nonfinite_in_10c_and_here": nonfinite,
+          "logits_tol": AGREE_TOL["bfloat16"],
+          "logits_max_abs_diff": logits_err,
+          "launches": {"residual_stack": [a["launches"] for a in acad]}})
+    emit({"phase": "path", "path": "tensor parallelism (phase 12)",
+          "seconds": time.perf_counter() - t_start, "workers_s": workers_s,
+          "residual_stack_launches": a1})
     return a1
 
 
@@ -3292,6 +3827,7 @@ def main() -> int:
                                                        manifest)
         launches["residual_stack"] += academic_phases(torch, wrappers, smi, cfg, work)
         launches["residual_stack"] += parallel_phases(torch, wrappers, smi, cfg, work, manifest)
+        launches["residual_stack"] += tensor_parallel_phases(torch, wrappers, smi, cfg, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -3347,4 +3883,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--tp-worker"]:
+        sys.exit(tp_worker(int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4])))
     sys.exit(main())

@@ -13,6 +13,17 @@ robustness, per-class + confusion, text + JSON reports), with `--device`
 the port's format (train/checkpoint.py); its config.json restores the
 model and data configuration. Without a card the CLI exits non-zero unless
 `--device cpu` is given.
+
+Under torchrun's environment (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR,
+MASTER_PORT) each process brings up the process group (NCCL on its card;
+gloo with `--device cpu`) and the battery runs on the mesh of the
+checkpoint's config (its `mesh` section: 'data' splits every batch's rows,
+'model' the encoders' heads): every rank computes the same results and rank
+0 writes them.
+
+    torchrun --nproc_per_node=2 -m \
+        multilingual_multimodal_speech_emotion_recognition_tpu_torch.cli.academic_eval \
+        --checkpoint ckpt_dir --manifest test.jsonl --output_dir evaluation_results
 """
 
 from __future__ import annotations
@@ -89,7 +100,16 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
 
     from .. import config as cfg_lib
     from ..eval import academic
+    from ..parallel import multihost
     from ..train import checkpoint as ckpt
+
+    # one process per card under torchrun, before anything runs on the card
+    try:
+        pod = multihost.initialize(device=device)
+    except ValueError as e:
+        raise SystemExit(f"academic_eval: {e}") from e
+    if pod:
+        print(f"multi-process: rank {multihost.rank()}/{multihost.world_size()}")
 
     cfg_json = ckpt.load_config_json(args.checkpoint)
     cfg = cfg_lib.config_from_json(cfg_json) if cfg_json else cfg_lib.Config()

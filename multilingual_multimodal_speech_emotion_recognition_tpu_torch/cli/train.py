@@ -14,14 +14,18 @@ One process per card: under torchrun (RANK, WORLD_SIZE, LOCAL_RANK,
 MASTER_ADDR, MASTER_PORT) or with --coordinator_address, --num_processes
 and --process_id, each process brings up the process group (NCCL on its
 card; gloo with `--device cpu`) and trains its share of the global
---batch_size on the mesh of --mesh_dcn, with --fsdp (--fsdp_min_size)
-sharding the parameters, gradients and AdamW moments over 'data'; rank 0
-writes the checkpoints and metrics. --mesh_model above 1 exits: the port's
-'model' axis shards storage, not the matmuls (ROADMAP item 16's rest):
+--batch_size on the mesh of --mesh_dcn and --mesh_model, with --fsdp
+(--fsdp_min_size) sharding the parameters, gradients and AdamW moments over
+'data' and --mesh_model splitting the encoders' and the cross-modal
+attention's heads and FFN columns over that many consecutive ranks
+(Megatron's tensor parallelism, parallel/tensor.py); rank 0 writes the
+checkpoints and metrics. On one process without a group, a mesh that needs
+more ranks exits:
 
     torchrun --nproc_per_node=8 -m \
         multilingual_multimodal_speech_emotion_recognition_tpu_torch.cli.train \
-        --train_manifest train.jsonl --val_manifest val.jsonl --batch_size 128 --fsdp
+        --train_manifest train.jsonl --val_manifest val.jsonl --batch_size 128 --fsdp \
+        --mesh_model 2
 
 `--audio_backbone`
 picks a preset of config.AUDIO_BACKBONE_PRESETS; `--wav2vec2_checkpoint`
@@ -91,8 +95,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to run on (default cuda; cpu for tiny models)")
     p.add_argument("--mesh_model", type=int, default=1,
-                   help="'model' mesh axis size; only 1 for now: the port's 'model' "
-                        "axis shards storage, not the matmuls (ROADMAP item 16's rest)")
+                   help="'model' mesh axis size: the ranks that split each encoder layer's "
+                        "and the cross-modal attention's heads and FFN columns")
     p.add_argument("--mesh_dcn", type=int, default=1,
                    help="number of hosts (slices) folded slice-major into 'data'")
     p.add_argument("--fsdp", action="store_true",
@@ -190,11 +194,6 @@ def load_pretrained(args: argparse.Namespace) -> Optional[dict]:
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     """Run the CLI; returns train's (or train_two_phase's) result."""
     args = parse_args(argv)
-    if args.mesh_model > 1:
-        raise SystemExit(f"train: --mesh_model {args.mesh_model} is not ported yet: the port's "
-                         "'model' axis shards the parameters' storage, not the matmuls, so each "
-                         "rank of a model group would run the whole step (ROADMAP item 16's "
-                         "rest); --fsdp shards over 'data'")
     from ..utils.runtime import resolve_device
     try:
         device = resolve_device(args.device)
@@ -214,7 +213,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         device = multihost.rank_device()
         print(f"multi-process: rank {multihost.rank()}/"
               f"{multihost.world_size()} on {device}")
-    elif args.mesh_dcn != 1:
+    elif args.mesh_dcn != 1 or args.mesh_model != 1:
         raise SystemExit(f"train: a mesh of model {args.mesh_model} x dcn {args.mesh_dcn} "
                          "needs that many ranks: launch one process per card with torchrun, "
                          "or give --coordinator_address, --num_processes and --process_id")

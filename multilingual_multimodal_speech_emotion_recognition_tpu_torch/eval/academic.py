@@ -1,7 +1,7 @@
 """Academic evaluation: the 8-part battery over a frozen checkpoint.
 
 Counterpart of multilingual_multimodal_speech_emotion_recognition_tpu/
-eval/academic.py, on one device, with the reference's
+eval/academic.py, with the reference's
 evaluate_academic_complete.py:91-137 parts:
   1. baseline weighted-F1/accuracy on the manifest (:139-173)
   2. cross-lingual transfer analysis (:175-198; the reference SIMULATES
@@ -28,6 +28,23 @@ torch.inference_mode(), so the classifier runs its kernel on the card;
 few-shot adaptation trains through the plain stack. The parameters go to
 `device` once. Everything funnels into one JSON-serializable dict, with
 the JAX battery's keys and layout, plus a text report.
+
+Under a process group, where the JAX package lays the battery's batches
+over its mesh, the parameters are laid out on the mesh (`mesh`, or
+cfg.mesh's) by the 'model' rule and every forward runs tensor-parallel over
+the 'model' group; each data shard's batch cache holds its rows of every
+batch (HostShardedLoader on 'data''s rank and size) and every pass (the
+baseline, the open-set protocol, the per-SNR estimates, the robustness
+sweep, code-mixing, zero-shot and the few-shot evaluations) gathers its
+rows over 'data' batch by batch, so every rank computes one process's
+results. The Gaussian noise of a batch is drawn for the whole global batch
+and each shard keeps its rows, as one process draws it; the few-shot batch
+is rounded up to a multiple of the 'data' size, as JAX rounds it. The
+few-shot adaptation itself runs on every rank over the whole K-shot
+batches: AdamW's first steps turn a gradient's rounding into steps of
+about lr, so summing the shards' gradients would not give one process's
+adapted heads. The timings (the benchmark and `part_seconds`) are rank
+0's, sent to every rank; rank 0 writes the JSON and the report.
 """
 
 from __future__ import annotations
@@ -40,17 +57,19 @@ from typing import Dict, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import Config
 from ..data.manifest import SIX_CLASS_NAMES
-from ..data.pipeline import EVAL_HOST_KEYS, BucketedLoader, SERDataset
+from ..data.pipeline import EVAL_HOST_KEYS, SERDataset
 from ..data.prefetch import device_prefetch
 from ..data.tokenizer import Tokenizer, get_tokenizer
 from ..frontend import lid as lid_mod
 from ..frontend import quality_gates as qg
 from ..ops import openmax as om
+from ..parallel import multihost as mh, tensor as tensor_lib
 from ..utils import metrics as M
-from ..utils.runtime import resolve_device, tree_to
+from ..utils.runtime import resolve_device
 from . import benchmark as bench
 from . import calibration as cal
 from . import enhanced_pipeline as ep
@@ -132,7 +151,7 @@ def _softmax(logits: np.ndarray) -> np.ndarray:
 
 
 def _open_set_protocol(params, cfg: Config, loader, device: torch.device,
-                       unknown_class: int) -> Dict:
+                       unknown_class: int, mesh=None, tp=None) -> Dict:
     """Leave-one-class-out open-set recognition protocol.
 
     The reference builds the machinery (OpenSetEvaluator OSCR/AUROC/AUPR/
@@ -153,7 +172,7 @@ def _open_set_protocol(params, cfg: Config, loader, device: torch.device,
       * energy  — logsumexp of known-class logits (−energy_score)
       * openmax — 1 − Weibull unknown probability
     """
-    step = ev.make_eval_step(cfg.model, use_openmax=False, device=device)
+    step = ev.make_eval_step(cfg.model, use_openmax=False, device=device, tp=tp)
     lg, ft, lb = [], [], []
     for batch, host in device_prefetch(loader.epoch(0), device, skip=EVAL_HOST_KEYS):
         logits, feats, _ = step(params, batch)
@@ -162,9 +181,11 @@ def _open_set_protocol(params, cfg: Config, loader, device: torch.device,
         ft.append(feats.float().cpu().numpy().astype(np.float64)[keep])
         lb.append(host["labels"][keep])
     C = cfg.model.num_labels
-    logits = np.concatenate(lg) if lg else np.zeros((0, C))
-    feats = np.concatenate(ft) if ft else np.zeros((0, 1))
-    labels = np.concatenate(lb) if lb else np.zeros((0,), np.int64)
+    rows = ev.gather_rows({"logits": np.concatenate(lg) if lg else np.zeros((0, C)),
+                           "feats": np.concatenate(ft) if ft else np.zeros((0, 1)),
+                           "labels": np.concatenate(lb) if lb else np.zeros((0,), np.int64)},
+                          mesh, [len(x) for x in lb])
+    logits, feats, labels = rows["logits"], rows["feats"], rows["labels"]
 
     known_classes = np.array([c for c in range(C) if c != unknown_class])
     unknown_mask = labels == unknown_class
@@ -241,20 +262,24 @@ def run_academic_evaluation(params, cfg: Config, manifest: str, *,
                             code_mix_languages: tuple = ("hi", "bn"),
                             zero_shot_languages: tuple = (),
                             open_set_unknown_class: Optional[int] = None,
-                            verbose: bool = True) -> Dict:
+                            verbose: bool = True, mesh=None) -> Dict:
     """The battery over `manifest` on `device` (the card unless the caller
     names another); returns the results dict, and writes
     academic_evaluation.json and academic_report.txt under `output_dir`
-    where given."""
+    where given (rank 0 under a group). Under a process group the battery
+    runs on `mesh` (cfg.mesh's when None), as the module docstring says;
+    every rank returns the same dict. COLLECTIVE under a group."""
     dev = resolve_device(device)
     tok = tokenizer or get_tokenizer(vocab_size=cfg.model.text.vocab_size)
-    params = tree_to(params, dev)
+    size = bench.count_params(params)
+    params, mesh = ev.place_on_mesh(params, cfg, dev, mesh)
     ds = SERDataset(manifest, cfg.data)
-    loader = _BatchCache(BucketedLoader(ds, batch_size=batch_size,
-                                        tokenizer=tok, shuffle=False))
+    loader = _BatchCache(mh.loader_class(mesh)(ds, batch_size=batch_size, tokenizer=tok,
+                                               shuffle=False))
+    view, tp, _ = ev.eval_view(params)
     try:
         return _run_academic_evaluation(
-            params, cfg, ds, loader, tok, dev,
+            view, cfg, ds, loader, tok, dev, mesh=mesh, tp=tp, param_count=size,
             asr_hypotheses=asr_hypotheses, output_dir=output_dir,
             run_benchmark=run_benchmark, run_few_shot=run_few_shot,
             run_robustness=run_robustness, few_shot_shots=few_shot_shots,
@@ -282,7 +307,7 @@ def _rss() -> str:
 
 
 def _run_academic_evaluation(params, cfg: Config, ds, loader, tok, device, *,
-                             asr_hypotheses, output_dir, run_benchmark,
+                             mesh, tp, param_count, asr_hypotheses, output_dir, run_benchmark,
                              run_few_shot, run_robustness, few_shot_shots,
                              few_shot_epochs, full_ft_f1,
                              robustness_snr_levels, robustness_noise_types,
@@ -298,13 +323,13 @@ def _run_academic_evaluation(params, cfg: Config, ds, loader, tok, device, *,
         now = time.perf_counter()
         part_seconds[name] = round(now - _t0, 2)
         _t0 = now
-        if verbose:
+        if verbose and mh.is_coordinator():
             # host RSS alongside per-part wall-clock: the RSS trace catches
             # host-side leaks that a single end-of-run number would hide
             print(f"[academic] {name}: {part_seconds[name]}s rss={_rss()}", flush=True)
 
     # 1. baseline pass (single forward, logits + probs)
-    out = ev.collect_logits(params, cfg, loader, use_openmax=True, device=device)
+    out = ev.collect_logits(params, cfg, loader, use_openmax=True, device=device, mesh=mesh)
     logits, labels = out["logits"], out["labels"]
     probs = _softmax(logits)
     preds = logits.argmax(axis=1)
@@ -356,12 +381,12 @@ def _run_academic_evaluation(params, cfg: Config, ds, loader, tok, device, *,
     # open-set recognition protocol: leave-one-class-out unknowns
     if open_set_unknown_class is not None:
         results["open_set"] = _open_set_protocol(
-            params, cfg, loader, device, int(open_set_unknown_class))
+            params, cfg, loader, device, int(open_set_unknown_class), mesh, tp)
 
     _mark("asr_risk_coverage")
     # 5. inference benchmark on the loaded model
     if run_benchmark:
-        step = ev.make_eval_step(cfg.model, use_openmax=False, device=device)
+        step = ev.make_eval_step(cfg.model, use_openmax=False, device=device, tp=tp)
         first = next(iter(loader.epoch(0)))
         dev = {k: torch.from_numpy(np.array(v)).to(device) for k, v in first.items()
                if k not in EVAL_HOST_KEYS}
@@ -374,7 +399,7 @@ def _run_academic_evaluation(params, cfg: Config, ds, loader, tok, device, *,
         sizes = sorted({1, min(4, B), min(8, B), B})
         results["inference_benchmark"] = bench.benchmark_fn(
             fwd, batch_sizes=sizes, warmup=2, runs=5)
-        results["inference_benchmark"]["params"] = bench.count_params(params)
+        results["inference_benchmark"]["params"] = param_count
 
     # per-SNR performance slicing (enhanced_evaluation.py:369-489): the SNR
     # each utterance sees is the front-end estimate
@@ -386,13 +411,14 @@ def _run_academic_evaluation(params, cfg: Config, ds, loader, tok, device, *,
             keep = host["example_mask"] > 0
             snr = qg.estimate_snr(batch["audio"], batch["audio_mask"])
             snr_all.append(snr.float().cpu().numpy()[keep])
-    snrs = np.concatenate(snr_all) if snr_all else np.zeros((0,))
+    snrs = ev.gather_rows({"snr": np.concatenate(snr_all) if snr_all else np.zeros((0,))},
+                          mesh, [len(x) for x in snr_all])["snr"]
     per_snr = slicing.slice_by_snr(labels, preds, conf, snrs)
     results["per_snr"] = {k: vars(v) for k, v in per_snr.items()}
 
     eval_step = None
     if run_few_shot or run_robustness or zero_shot_languages:
-        eval_step = ev.make_eval_step(cfg.model, use_openmax=True, device=device)
+        eval_step = ev.make_eval_step(cfg.model, use_openmax=True, device=device, tp=tp)
 
     def _predict_with_texts(new_texts):
         """Re-run the model over the same audio with substituted texts
@@ -418,8 +444,11 @@ def _run_academic_evaluation(params, cfg: Config, ds, loader, tok, device, *,
             keep = host["example_mask"] > 0
             lg.append(logits[keep])
             lb.append(host["labels"][keep])
-        lg = np.concatenate(lg) if lg else np.zeros((0, cfg.model.num_labels))
-        lb = np.concatenate(lb) if lb else np.zeros((0,), np.int64)
+        rows = ev.gather_rows(
+            {"lg": np.concatenate(lg) if lg else np.zeros((0, cfg.model.num_labels)),
+             "lb": np.concatenate(lb) if lb else np.zeros((0,), np.int64)},
+            mesh, [len(x) for x in lb])
+        lg, lb = rows["lg"], rows["lb"]
         pr = _softmax(lg) if len(lg) else lg
         return lg.argmax(axis=1) if len(lg) else np.zeros(0, np.int64), pr, lb
 
@@ -430,22 +459,25 @@ def _run_academic_evaluation(params, cfg: Config, ds, loader, tok, device, *,
         n_items = len(ds)
         shots = few_shot_shots or [k for k in fs.DEFAULT_SHOTS
                                    if k < n_items] or [max(1, n_items // 2)]
-        sub_bs = min(FEW_SHOT_BATCH, batch_size)
+        # rounded up to a multiple of the data axis so batches shard, as JAX does
+        data_n = 1 if mesh is None else tensor_lib.data_shard(mesh)[1]
+        sub_bs = -(-min(FEW_SHOT_BATCH, batch_size) // data_n) * data_n
 
-        def _subset_loader(indices, shuffle):
+        def _subset_loader(indices, shuffle, sharded=False):
             sub = copy.copy(ds)
             sub.items = [ds.items[i] for i in indices]
-            return BucketedLoader(sub, batch_size=sub_bs,
-                                  tokenizer=tok, shuffle=shuffle, seed=42)
+            return mh.loader_class(mesh if sharded else None)(
+                sub, batch_size=sub_bs, tokenizer=tok, shuffle=shuffle, seed=42)
 
         def make_batches(indices):
+            # the whole K-shot batches on every rank (the module docstring)
             return [{k: v for k, v in b.items() if k != "indices"}
                     for b in _subset_loader(indices, True).epoch(0)]
 
         def evaluate_subset(p, indices):
             sub_out = ev.collect_logits(
-                p, cfg, _subset_loader(indices, False), use_openmax=True,
-                device=device)
+                p, cfg, _subset_loader(indices, False, sharded=True), use_openmax=True,
+                device=device, mesh=mesh)
             sp = sub_out["logits"].argmax(axis=1)
             return {"f1": M.weighted_f1(sp, sub_out["labels"],
                                         cfg.model.num_labels),
@@ -455,7 +487,7 @@ def _run_academic_evaluation(params, cfg: Config, ds, loader, tok, device, *,
             params, cfg.model, make_batches=make_batches,
             evaluate=evaluate_subset, n_items=n_items, shots=shots,
             zero_shot_f1=results["baseline"]["weighted_f1"],
-            full_ft_f1=full_ft_f1, num_epochs=few_shot_epochs)
+            full_ft_f1=full_ft_f1, num_epochs=few_shot_epochs, tp=tp)
         results["few_shot"] = [vars(r) for r in fs_results]
 
     _mark("few_shot")
@@ -467,15 +499,25 @@ def _run_academic_evaluation(params, cfg: Config, ds, loader, tok, device, *,
         def noise_predict(batch, generator, snr_db, noise_type):
             dev = {k: torch.from_numpy(np.array(v)).to(device) for k, v in batch.items()
                    if k not in EVAL_HOST_KEYS}
-            noisy = rob.add_noise_at_snr(dev["audio"], dev["audio_mask"], snr_db,
-                                         noise_type=noise_type, generator=generator)
+            audio, noise = dev["audio"], None
+            if noise_type == "gaussian" and mesh is not None:
+                # the global batch's draw, as one process takes it; this shard's rows
+                index, count = tensor_lib.data_shard(mesh)
+                rows = audio.shape[0]
+                noise = torch.randn((rows * count, audio.shape[1]), generator=generator,
+                                    device=audio.device, dtype=audio.dtype
+                                    )[index * rows:(index + 1) * rows]
+            noisy = rob.add_noise_at_snr(audio, dev["audio_mask"], snr_db,
+                                         noise_type=noise_type, generator=generator,
+                                         noise=noise)
             logits = eval_step(params, {**dev, "audio": noisy})[0]
             logits = logits.float().cpu().numpy().astype(np.float64)
             keep = batch["example_mask"] > 0
-            logits = logits[keep]
-            return {"preds": logits.argmax(axis=1),
-                    "probs": _softmax(logits),
-                    "labels": batch["labels"][keep]}
+            rows = ev.gather_rows({"logits": logits[keep], "labels": batch["labels"][keep]},
+                                  mesh, [int(keep.sum())])
+            return {"preds": rows["logits"].argmax(axis=1),
+                    "probs": _softmax(rows["logits"]),
+                    "labels": rows["labels"]}
 
         noise_res = rob.evaluate_noise_robustness(
             noise_predict, loader.batches,
@@ -508,18 +550,24 @@ def _run_academic_evaluation(params, cfg: Config, ds, loader, tok, device, *,
     results["confusion_matrix"] = M.confusion_matrix(
         labels, preds, cfg.model.num_labels).tolist()
 
-    report = generate_report(results, names)
     _mark("per_class_report")
     results["part_seconds"] = part_seconds
+    if mh.world_size() > 1:
+        # the timings are rank 0's on every rank, so every rank's dict is one
+        timed = [{k: results[k] for k in ("part_seconds", "inference_benchmark")
+                  if k in results}]
+        dist.broadcast_object_list(timed, src=0)
+        results.update(timed[0])
+    report = generate_report(results, names)
     results["report"] = report
-    if output_dir:
+    if output_dir and mh.is_coordinator():
         outp = Path(output_dir)
         outp.mkdir(parents=True, exist_ok=True)
         (outp / "academic_evaluation.json").write_text(
             json.dumps({k: v for k, v in results.items() if k != "report"},
                        default=_json_default, indent=2))
         (outp / "academic_report.txt").write_text(report)
-    if verbose:
+    if verbose and mh.is_coordinator():
         print(report)
     return results
 

@@ -18,12 +18,16 @@ without a card it raises. Noise views draw from a torch.Generator on the
 step's device, seeded once per `collect_logits` and advanced per batch, so
 a run is repeatable on one device (the draws are not JAX's).
 
-Under a process group of more than one rank (parallel/multihost.py), where
-the JAX package lays each batch over its mesh, each rank scores its share
-of every batch's rows (HostShardedLoader) with the parameters gathered
-whole, and the logits, labels and indices come back onto every rank in
-rank order (allgather_rows), so every rank computes the same report. The
-TTA noise views then draw per rank, so they differ from one process's.
+Under a process group (parallel/multihost.py), where the JAX package lays
+each batch over its mesh, the parameters are laid out on the mesh of
+cfg.mesh (or the caller's), each data shard scores its share of every
+batch's rows (HostShardedLoader on 'data''s rank and size), the ranks of a
+'model' group the same rows with the encoders and the cross-modal
+attention split over the group (parallel/tensor.py; nothing gathered over
+'model'), and the logits, labels and indices come back onto every rank
+over 'data', batch by batch in one process's row order (allgather_rows),
+so every rank computes the same report. The TTA noise views then draw per
+data shard, so they differ from one process's.
 """
 
 from __future__ import annotations
@@ -42,7 +46,7 @@ from ..data.prefetch import device_prefetch
 from ..data.tokenizer import Tokenizer, get_tokenizer
 from ..models import model as mdl
 from ..ops import audio_dsp, openmax as om
-from ..parallel import multihost as mh
+from ..parallel import mesh as mesh_lib, multihost as mh, tensor as tensor_lib
 from ..utils import metrics as M
 from ..utils.runtime import params_on, resolve_device, to_device, tree_to
 
@@ -78,23 +82,25 @@ def _batch_on(batch: dict, device: torch.device) -> dict:
 
 
 def make_eval_step(model_cfg: ModelConfig, *, use_openmax: bool = False,
-                   device: Device = None):
+                   device: Device = None, tp=None):
     """The plain eval step (the JAX package's train/train_step.py:
     make_eval_step): step(params, batch) -> (logits, features,
-    uncertainty), under torch.inference_mode()."""
+    uncertainty), under torch.inference_mode(). Under `tp` (a
+    parallel/tensor.ModelGroup) `params` is this rank's view
+    (parallel/tensor.split) and the forward is tensor-parallel."""
     dev = resolve_device(device)
 
     @torch.inference_mode()
     def step(params: dict, batch: dict):
         params_on(params, dev)
-        out = mdl.model_forward(params, model_cfg, batch, use_openmax=use_openmax)
+        out = mdl.model_forward(params, model_cfg, batch, use_openmax=use_openmax, tp=tp)
         return out.logits, out.features, out.uncertainty
 
     return step
 
 
 def make_tta_eval_step(cfg: Config, num_tta: int = 5, use_openmax: bool = True,
-                       device: Device = None):
+                       device: Device = None, tp=None):
     """step(params, batch, generator=None, noise=None) -> logits [B, C]: one
     forward over the [V*B] expanded batch, logits meaned over the views.
 
@@ -103,7 +109,8 @@ def make_tta_eval_step(cfg: Config, num_tta: int = 5, use_openmax: bool = True,
     [B], its output tiled V times; `model_heads` takes the raw tree (it
     casts inside). `noise`, where given, holds the two noise views'
     standard-normal draws [B, T]; otherwise they come from `generator`.
-    The step runs under torch.inference_mode()."""
+    The step runs under torch.inference_mode(); tensor-parallel under `tp`,
+    as make_eval_step's."""
     if not 1 <= num_tta <= MAX_TTA_VIEWS:
         raise ValueError(f"num_tta must be in 1..{MAX_TTA_VIEWS}, not {num_tta}")
     dev = resolve_device(device)
@@ -132,35 +139,60 @@ def make_tta_eval_step(cfg: Config, num_tta: int = 5, use_openmax: bool = True,
 
         a_seq, a_mask = mdl.encode_audio(p, mcfg, wave.to(dtype), mask,
                                          quality_feats=quality_feats,
-                                         cond_feats=cond_feats)
+                                         cond_feats=cond_feats, tp=tp)
         t_seq, t_mask = mdl.encode_text(p, mcfg, batch["text_ids"], batch["text_mask"],
-                                        asr_feats=batch.get("asr_feats"))
+                                        asr_feats=batch.get("asr_feats"), tp=tp)
         out = mdl.model_heads(params, mcfg, a_seq, a_mask, tile(t_seq), tile(t_mask),
-                              use_openmax=use_openmax)
+                              use_openmax=use_openmax, tp=tp)
         return out.logits.reshape(V, B, -1).mean(dim=0)
 
     return step
 
 
+def eval_view(params: dict, mesh=None):
+    """(params, ModelGroup or None, mesh) for the eval steps: a tree of
+    DTensors becomes this rank's view on its own mesh; a plain tree under
+    `mesh` is taken as this rank's view already; otherwise (params, None,
+    None), or under a group with neither the whole tree on every rank."""
+    own = tensor_lib.mesh_of(params)
+    if own is not None:
+        view, tp = tensor_lib.split(params)
+        return view, tp, own
+    if mesh is not None:
+        return params, tensor_lib.model_group(mesh), mesh
+    return mh.host_replicated(params), None, None
+
+
+def gather_rows(rows: Dict[str, np.ndarray], mesh, batches) -> Dict[str, np.ndarray]:
+    """Each rank's host rows gathered over 'data' onto every rank, in one
+    process's order (multihost.allgather_rows with `batches`, this rank's
+    real rows per batch); as they are on one process. COLLECTIVE."""
+    if mh.world_size() == 1:
+        return rows
+    return {k: mh.allgather_rows(v, mesh=mesh, batches=batches) for k, v in rows.items()}
+
+
 def collect_logits(params: dict, cfg: Config, loader: BucketedLoader, *,
                    use_tta: bool = False, num_tta: int = 5,
                    use_openmax: bool = True,
-                   device: Device = None) -> Dict[str, np.ndarray]:
+                   device: Device = None, mesh=None) -> Dict[str, np.ndarray]:
     """Logits (f64), labels and manifest indices of every real row of the
     loader's epoch 0; each step's host-clock seconds (`step_seconds`: from
     the batch's arrival on the device to its logits on the host) and the
     whole pass's (`pass_seconds`, the loader's start included), whose
-    difference is the time the steps waited for the loader. With more than
-    one rank, each runs its loader's rows and the rows are gathered onto
-    every rank (COLLECTIVE); the seconds stay the rank's own."""
+    difference is the time the steps waited for the loader. Under a group
+    each data shard runs its loader's rows, tensor-parallel over the
+    'model' group where `params` are sharded on a mesh (or are a rank's view
+    of `mesh`'s), and the rows are gathered onto every rank in one
+    process's order (COLLECTIVE); the seconds stay the rank's own."""
     dev = resolve_device(device)
-    params = mh.host_replicated(params)
+    params, tp, mesh = eval_view(params, mesh)
     if use_tta:
-        tta = make_tta_eval_step(cfg, num_tta, use_openmax=use_openmax, device=dev)
+        tta = make_tta_eval_step(cfg, num_tta, use_openmax=use_openmax, device=dev, tp=tp)
         generator = torch.Generator(device=dev).manual_seed(NOISE_SEED)
         step = lambda p, b: tta(p, b, generator)
     else:
-        plain = make_eval_step(cfg.model, use_openmax=use_openmax, device=dev)
+        plain = make_eval_step(cfg.model, use_openmax=use_openmax, device=dev, tp=tp)
         step = lambda p, b: plain(p, b)[0]
     logits_all, labels_all, indices_all, seconds = [], [], [], []
     start = time.perf_counter()
@@ -178,10 +210,22 @@ def collect_logits(params: dict, cfg: Config, loader: BucketedLoader, *,
         "labels": np.concatenate(labels_all) if labels_all else np.zeros((0,), np.int64),
         "indices": np.concatenate(indices_all) if indices_all else np.zeros((0,), np.int32),
     }
-    if mh.world_size() > 1:
-        rows = {k: mh.allgather_rows(v) for k, v in rows.items()}
+    rows = gather_rows(rows, mesh, [len(x) for x in labels_all])
     return {**rows, "step_seconds": np.asarray(seconds),
             "pass_seconds": time.perf_counter() - start}
+
+
+def place_on_mesh(params: dict, cfg: Config, device: torch.device, mesh=None):
+    """(params, mesh): on one process the whole tree on `device` and no
+    mesh; under a process group the tree laid out on `mesh` (cfg.mesh's
+    when None) by the 'model' rule, each rank holding its shards, checked
+    against the config's heads and widths (COLLECTIVE)."""
+    params = tree_to(mh.host_replicated(params), device)
+    if not mh.group_up():
+        return params, None
+    mesh = mesh or mesh_lib.mesh_from_config(cfg.mesh, device=device)
+    tensor_lib.check_model_axis(cfg.model, mesh[mesh_lib.MODEL_AXIS].size())
+    return mesh_lib.shard_params(params, mesh), mesh
 
 
 def evaluate_manifest(params: dict, cfg: Config, manifest: str, *,
@@ -189,15 +233,16 @@ def evaluate_manifest(params: dict, cfg: Config, manifest: str, *,
                       num_tta: int = 5, calibrate: bool = False,
                       val_manifest: Optional[str] = None,
                       tokenizer: Optional[Tokenizer] = None,
-                      verbose: bool = True, device: Device = None) -> Dict:
+                      verbose: bool = True, device: Device = None, mesh=None) -> Dict:
     """Score `manifest`: the JAX package's evaluate_manifest results, plus
     the scored pass's `step_seconds` and `pass_seconds`, the calibration
     pass's `calibration_step_seconds` and the WAV decoder the loader used.
-    The parameters go to `device` once."""
+    The parameters go to `device` once; under a process group they are laid
+    out on `mesh` (cfg.mesh's by default) by the 'model' rule."""
     dev = resolve_device(device)
     tok = tokenizer or get_tokenizer(vocab_size=cfg.model.text.vocab_size)
-    params = tree_to(mh.host_replicated(params), dev)
-    Loader = mh.HostShardedLoader if mh.world_size() > 1 else BucketedLoader
+    params, mesh = place_on_mesh(params, cfg, dev, mesh)
+    Loader = mh.loader_class(mesh)
 
     optimal_temp = 1.0
     cal_seconds = np.zeros(0)

@@ -62,13 +62,14 @@ def make_adapt_optimizer(params: dict, lr: float) -> AdamW:
 
 
 def adapt_loss(params: dict, model_cfg: ModelConfig, batch: dict,
-               generator: torch.Generator) -> torch.Tensor:
+               generator: torch.Generator, tp=None) -> torch.Tensor:
     """The masked CE of one training forward (dropout from `generator`):
     padded rows (a partial final batch) carry example_mask 0 and do not
-    enter the K-shot objective."""
+    enter the K-shot objective. `tp` (a parallel/tensor.ModelGroup) runs the
+    forward tensor-parallel on this rank's view of the parameters."""
     fwd = {k: v for k, v in batch.items() if k not in ("labels", "example_mask")}
     out = mdl.model_forward(params, model_cfg, fwd, deterministic=False,
-                            generator=generator, use_openmax=False)
+                            generator=generator, use_openmax=False, tp=tp)
     device = out.logits.device
     logp = torch.log_softmax(out.logits, dim=-1)
     labels = to_device(batch["labels"], device).long()
@@ -81,10 +82,11 @@ def adapt_loss(params: dict, model_cfg: ModelConfig, batch: dict,
     return (ce * w).sum() / w.sum().clamp(min=1.0)
 
 
-def make_adapt_step(model_cfg: ModelConfig, optimizer: AdamW):
+def make_adapt_step(model_cfg: ModelConfig, optimizer: AdamW, tp=None):
     """step(params, opt_state, batch, generator) -> loss (a 0-dim tensor):
     adapt_loss, its gradients and one update of the trained leaves, in
-    place."""
+    place. The trained leaves are replicated, so under `tp` every rank of
+    the group computes their whole gradient."""
 
     def step(params: dict, opt_state: dict, batch: dict,
              generator: torch.Generator) -> torch.Tensor:
@@ -97,7 +99,7 @@ def make_adapt_step(model_cfg: ModelConfig, optimizer: AdamW):
             leaves[path] = t.detach().requires_grad_(True)
             return leaves[path]
 
-        loss = adapt_loss(map_leaves(params, alias), model_cfg, batch, generator)
+        loss = adapt_loss(map_leaves(params, alias), model_cfg, batch, generator, tp)
         grads = torch.autograd.grad(loss, [leaves[p] for p in paths], allow_unused=True,
                                     materialize_grads=True)
         optimizer.apply_(params, dict(zip(paths, grads)), opt_state)
@@ -108,15 +110,16 @@ def make_adapt_step(model_cfg: ModelConfig, optimizer: AdamW):
 
 def adapt(params: dict, model_cfg: ModelConfig,
           batches_fn: Callable[[], Sequence[dict]], *,
-          num_epochs: int = 5, lr: float = 1e-4, seed: int = 42) -> dict:
+          num_epochs: int = 5, lr: float = 1e-4, seed: int = 42, tp=None) -> dict:
     """Run the adaptation loop on the parameters' device; returns the
     adapted tree. The trained subtrees are clones, the frozen ones the
-    caller's tensors: `params` itself is left as it was."""
+    caller's tensors: `params` itself is left as it was. Under `tp` the
+    forward is tensor-parallel on this rank's view `params`."""
     params = {k: (map_leaves(v, lambda _, t: t.clone()) if k in TRAINABLE else v)
               for k, v in params.items()}
     optimizer = make_adapt_optimizer(params, lr)
     opt_state = optimizer.init(params)
-    step = make_adapt_step(model_cfg, optimizer)
+    step = make_adapt_step(model_cfg, optimizer, tp)
     device = params["classifier"]["input_proj"]["kernel"].device
     generator = torch.Generator(device=device).manual_seed(seed)
     for _ in range(num_epochs):
@@ -151,16 +154,16 @@ def run_few_shot_suite(params: dict, model_cfg: ModelConfig, *,
                        shots: Sequence[int] = DEFAULT_SHOTS,
                        zero_shot_f1: Optional[float] = None,
                        full_ft_f1: Optional[float] = None,
-                       num_epochs: int = 5, seed: int = 42
+                       num_epochs: int = 5, seed: int = 42, tp=None
                        ) -> List[FewShotResult]:
     """Full K-shot sweep, each K adapted from `params`. `make_batches(indices)`
     yields train batches over those items; `evaluate(params, indices)`
-    returns {'f1', 'accuracy'} on the held-out items."""
+    returns {'f1', 'accuracy'} on the held-out items. `tp` as adapt's."""
     results = []
     for k in shots:
         shot_idx, eval_idx = select_shots(n_items, k, seed)
         adapted = adapt(params, model_cfg, lambda: make_batches(shot_idx),
-                        num_epochs=num_epochs, seed=seed)
+                        num_epochs=num_epochs, seed=seed, tp=tp)
         m = evaluate(adapted, eval_idx)
         rec = 0.0
         if zero_shot_f1 is not None and full_ft_f1 is not None:

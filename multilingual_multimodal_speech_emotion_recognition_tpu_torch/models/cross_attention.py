@@ -41,10 +41,14 @@ def cross_modal_attention(params: dict, audio_seq: Tensor, text_seq: Tensor,
                           text_mask: Optional[Tensor] = None, *,
                           num_heads: int = 8, dropout_rate: float = 0.1,
                           generator: Optional[torch.Generator] = None,
-                          deterministic: bool = True) -> Tuple[Tensor, Tensor]:
+                          deterministic: bool = True, tp=None) -> Tuple[Tensor, Tensor]:
     """audio_seq: [B, Sa, Da]; text_seq: [B, St, Dt]; masks 1 valid / 0 pad.
-    Returns (audio_enhanced [B, Sa, Da], text_enhanced [B, St, Dt])."""
-    drop = dict(dropout_rate=dropout_rate, generator=generator, deterministic=deterministic)
+    Returns (audio_enhanced [B, Sa, Da], text_enhanced [B, St, Dt]). Under
+    `tp` (a parallel/tensor.ModelGroup) attn_a and attn_t run this rank's
+    heads (layers.mha); the shared-space projections, which the 'model'
+    rule leaves replicated, run whole on every rank."""
+    drop = dict(dropout_rate=dropout_rate, generator=generator, deterministic=deterministic,
+                tp=tp)
     a_ctx = layers.mha(params["attn_a"], layers.linear(params["q_a"], audio_seq),
                        layers.linear(params["k_t"], text_seq),
                        layers.linear(params["v_t"], text_seq),

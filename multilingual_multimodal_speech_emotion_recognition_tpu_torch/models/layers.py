@@ -20,7 +20,7 @@ device it only makes shapes, which the weight bridge uses as its template.
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -119,16 +119,27 @@ def layer_norm(params: dict, x: Tensor, *, eps: float = 1e-5) -> Tensor:
 
 
 def dropout(generator: Optional[torch.Generator], x: Tensor, rate: float,
-            deterministic: bool) -> Tensor:
+            deterministic: bool, shard: Optional[Tuple[int, int, int]] = None) -> Tensor:
     """Inverted dropout: keep with probability 1 - rate and scale by
     1 / (1 - rate), in x's dtype. The mask is drawn with torch.rand from
-    `generator`, which must live on x's device (F.dropout takes none)."""
+    `generator`, which must live on x's device (F.dropout takes none).
+    `shard` = (dim, lo, full) says x is the part [lo, lo + x.shape[dim]) of
+    a tensor `full` wide along dim (a tensor-parallel rank's heads or
+    columns): the whole tensor's mask is drawn and this part kept, so that
+    each part gets its own draws and the generator stays in step across
+    the ranks."""
     if deterministic or rate <= 0.0:
         return x
     if generator is None:
         raise ValueError("dropout: the training forward needs a torch.Generator")
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    shape = list(x.shape)
+    if shard is not None:
+        dim, lo, full = shard
+        shape[dim] = full
+    mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    if shard is not None:
+        mask = mask.narrow(dim, lo, x.shape[dim])
     return torch.where(mask, x / keep, 0.0)
 
 
@@ -147,31 +158,44 @@ def init_mha(init: Init, embed_dim: int) -> dict:
 def mha(params: dict, q: Tensor, k: Tensor, v: Tensor, *, num_heads: int,
         key_padding_mask: Optional[Tensor] = None, dropout_rate: float = 0.0,
         generator: Optional[torch.Generator] = None,
-        deterministic: bool = True) -> Tensor:
+        deterministic: bool = True, tp=None) -> Tensor:
     """Multi-head attention with torch.nn.MultiheadAttention's semantics.
 
     q: [B, Sq, E], k/v: [B, Sk, E]; key_padding_mask: [B, Sk] with 1 for
     VALID (the inverse of torch's convention). The logits are divided by
     sqrt(Dh) after the product, masked with -inf, and the softmax runs in
     f32; its weights are cast back to q.dtype, and dropped out in training,
-    before the value product.
+    before the value product. Under `tp` (a parallel/tensor.ModelGroup;
+    q/k/v/out kernels this rank's shards) this rank computes its heads and
+    the row-parallel `out` sums the group's.
     """
     B, Sq, E = q.shape
     Sk = k.shape[1]
     H = num_heads
     D = E // H
-    qh = linear(params["q"], q).reshape(B, Sq, H, D)
-    kh = linear(params["k"], k).reshape(B, Sk, H, D)
-    vh = linear(params["v"], v).reshape(B, Sk, H, D)
+    lo, hi = (0, H) if tp is None else tp.span(H, "attention heads")
+    proj = params
+    if tp is not None:
+        from ..parallel import tensor as tpl
+        q, k, v = (tpl.copy_to_model(x, tp) for x in (q, k, v))
+        proj = {n: {**params[n], "bias": tpl.local_part(params[n]["bias"], -1,
+                                                        (lo * D, hi * D), tp)}
+                for n in ("q", "k", "v")}
+    qh = linear(proj["q"], q).reshape(B, Sq, hi - lo, D)
+    kh = linear(proj["k"], k).reshape(B, Sk, hi - lo, D)
+    vh = linear(proj["v"], v).reshape(B, Sk, hi - lo, D)
     logits = torch.einsum("bqhd,bkhd->bhqk", qh, kh).float()
     logits = logits / math.sqrt(D)
     if key_padding_mask is not None:
         pad = (key_padding_mask == 0)[:, None, None, :]
         logits = logits.masked_fill(pad, -math.inf)
     attn = torch.softmax(logits, dim=-1).to(q.dtype)
-    attn = dropout(generator, attn, dropout_rate, deterministic)
-    ctx = torch.einsum("bhqk,bkhd->bqhd", attn, vh).reshape(B, Sq, E)
-    return linear(params["out"], ctx)
+    attn = dropout(generator, attn, dropout_rate, deterministic,
+                   shard=None if tp is None else (1, lo, H))
+    ctx = torch.einsum("bhqk,bkhd->bqhd", attn, vh).reshape(B, Sq, (hi - lo) * D)
+    if tp is None:
+        return linear(params["out"], ctx)
+    return tpl.row_linear(params["out"], ctx, tp)
 
 
 def layer_at(stacked, i: int):
@@ -194,38 +218,67 @@ def encoder_stack(stacked: dict, h: Tensor, attn_bias: Tensor, *,
                   activation_dropout: float = 0.0,
                   generator: Optional[torch.Generator] = None,
                   deterministic: bool = True,
-                  remat: remat_lib.RematSpec = False) -> Tensor:
+                  remat: remat_lib.RematSpec = False, tp=None) -> Tensor:
     """Transformer layers over stacked [L, ...] parameters, shared by
     wav2vec2 and XLM-R. Post-LN blocks by default, LN(x + attn(x)) then
     LN(x + ffn(x)); `pre_ln` gives the stable-LN blocks, x + attn(LN(x))
     then x + ffn(LN(x)). q is scaled by 1/sqrt(Dh) before the product; the
     logits are f32, plus attn_bias, plus logit_bias(layer, attention input)
-    where given (WavLM's gated relative position bias); the softmax runs in
-    f32 and is cast back to h.dtype. In training the dropout sites are the
-    JAX package's: attention weights (attention_dropout), the attention
-    output and the FFN output (hidden_dropout), the FFN's GELU output
-    (activation_dropout; XLM-R has none). `remat` checkpoints each layer
-    (models/remat.py)."""
+    where given (WavLM's gated relative position bias, over this rank's
+    heads under `tp`); the softmax runs in f32 and is cast back to h.dtype.
+    In training the dropout sites are the JAX package's: attention weights
+    (attention_dropout), the attention output and the FFN output
+    (hidden_dropout), the FFN's GELU output (activation_dropout; XLM-R has
+    none). `remat` checkpoints each layer (models/remat.py).
+
+    Under `tp` (a parallel/tensor.ModelGroup) the q/k/v/out/ffn_in/ffn_out
+    kernels are this rank's shards: q, k, v and ffn_in column-parallel (the
+    rank's heads and FFN columns, their bias cut here once for the stack),
+    out and ffn_out row-parallel (summed over the group, the bias added
+    after), LN and residuals replicated. The attention weights' and the
+    GELU output's dropout draws are this rank's part of the whole tensor's;
+    the hidden dropout after each sum draws the same mask on every rank."""
     B, S, E = h.shape
     H = num_heads
     D = E // H
     scale = D ** -0.5
+    lo, hi = 0, H
+    if tp is not None:
+        from ..parallel import tensor as tpl
+        lo, hi = tp.span(H, "attention heads")
+        F = stacked["ffn_in"]["bias"].shape[-1]
+        f_span = tp.span(F, "FFN columns")
+        stacked = {**stacked, **{n: {**stacked[n], "bias": tpl.local_part(
+            stacked[n]["bias"], -1, (lo * D, hi * D), tp)} for n in ("q", "k", "v")},
+                   "ffn_in": {**stacked["ffn_in"], "bias": tpl.local_part(
+                       stacked["ffn_in"]["bias"], -1, f_span, tp)}}
+    Hl = hi - lo
+
+    def row(p: dict, x: Tensor) -> Tensor:
+        return linear(p, x) if tp is None else tpl.row_linear(p, x, tp)
 
     def attention(x: Tensor, layer: dict, g: Optional[torch.Generator]) -> Tensor:
-        q = (linear(layer["q"], x) * scale).reshape(B, S, H, D)
-        k = linear(layer["k"], x).reshape(B, S, H, D)
-        v = linear(layer["v"], x).reshape(B, S, H, D)
+        if tp is not None:
+            x = tpl.copy_to_model(x, tp)
+        q = (linear(layer["q"], x) * scale).reshape(B, S, Hl, D)
+        k = linear(layer["k"], x).reshape(B, S, Hl, D)
+        v = linear(layer["v"], x).reshape(B, S, Hl, D)
         logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() + attn_bias
         if logit_bias is not None:
             logits = logits + logit_bias(layer, x)
         attn = torch.softmax(logits, dim=-1).to(x.dtype)
-        attn = dropout(g, attn, attention_dropout, deterministic)
-        ctx = torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(B, S, E)
-        return dropout(g, linear(layer["out"], ctx), hidden_dropout, deterministic)
+        attn = dropout(g, attn, attention_dropout, deterministic,
+                       shard=None if tp is None else (1, lo, H))
+        ctx = torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(B, S, Hl * D)
+        return dropout(g, row(layer["out"], ctx), hidden_dropout, deterministic)
 
     def ffn(x: Tensor, layer: dict, g: Optional[torch.Generator]) -> Tensor:
-        f = dropout(g, gelu(linear(layer["ffn_in"], x)), activation_dropout, deterministic)
-        return dropout(g, linear(layer["ffn_out"], f), hidden_dropout, deterministic)
+        if tp is not None:
+            x = tpl.copy_to_model(x, tp)
+        f = gelu(linear(layer["ffn_in"], x))
+        f = dropout(g, f, activation_dropout, deterministic,
+                    shard=None if tp is None else (2, f_span[0], F))
+        return dropout(g, row(layer["ffn_out"], f), hidden_dropout, deterministic)
 
     def body(h: Tensor, layer: dict, g: Optional[torch.Generator]) -> Tensor:
         if pre_ln:

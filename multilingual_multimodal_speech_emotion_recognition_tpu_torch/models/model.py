@@ -171,13 +171,14 @@ def encode_audio(params: dict, cfg: ModelConfig, wave: Tensor, wave_mask: Tensor
                  *, quality_feats: Optional[Tensor] = None,
                  cond_feats: Optional[Tensor] = None, deterministic: bool = True,
                  generator: Optional[torch.Generator] = None,
-                 spec_augment: bool = False):
-    """[B, T] waveform -> ([B, T', ah] sequence, [B, T'] frame mask)."""
+                 spec_augment: bool = False, tp=None):
+    """[B, T] waveform -> ([B, T', ah] sequence, [B, T'] frame mask); the
+    backbone tensor-parallel under `tp` (a parallel/tensor.ModelGroup)."""
     with _frozen(params["audio_backbone"]):
         seq, frame_mask = w2v.wav2vec2_encode(
             params["audio_backbone"], cfg.audio, wave, wave_mask,
             deterministic=deterministic, generator=generator,
-            spec_augment=spec_augment, remat=cfg.remat_encoders)
+            spec_augment=spec_augment, remat=cfg.remat_encoders, tp=tp)
     seq = _adapter(params["audio_adapter"], seq)
     drop = (generator, deterministic)
     uq, uc = cfg.use_quality_gates, cfg.use_audio_conditioning
@@ -204,12 +205,13 @@ def encode_audio(params: dict, cfg: ModelConfig, wave: Tensor, wave_mask: Tensor
 def encode_text(params: dict, cfg: ModelConfig, input_ids: Tensor,
                 text_mask: Tensor, *, asr_feats: Optional[Tensor] = None,
                 deterministic: bool = True,
-                generator: Optional[torch.Generator] = None):
-    """[B, S] token ids -> ([B, S, th] sequence, [B, S] mask)."""
+                generator: Optional[torch.Generator] = None, tp=None):
+    """[B, S] token ids -> ([B, S, th] sequence, [B, S] mask); the backbone
+    tensor-parallel under `tp` (a parallel/tensor.ModelGroup)."""
     with _frozen(params["text_backbone"]):
         seq = xlmr_mod.xlmr_encode(params["text_backbone"], cfg.text, input_ids,
                                    text_mask, deterministic=deterministic,
-                                   generator=generator, remat=cfg.remat_encoders)
+                                   generator=generator, remat=cfg.remat_encoders, tp=tp)
     seq = _adapter(params["text_adapter"], seq)
     if cfg.use_asr and asr_feats is not None:
         drop = (generator, deterministic)
@@ -245,14 +247,17 @@ def frontend_features(cfg: ModelConfig, batch: dict):
 def model_heads(params: dict, cfg: ModelConfig, a_seq: Tensor, a_mask: Tensor,
                 t_seq: Tensor, t_mask: Tensor, *, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None,
-                use_openmax: bool = False) -> ModelOutput:
+                use_openmax: bool = False, tp=None) -> ModelOutput:
     """Cross-modal attention -> pooling x2 -> gated fusion -> classifier,
-    from encoded sequences; `params` is the raw (uncast) tree."""
+    from encoded sequences; `params` is the raw (uncast) tree. Under `tp`
+    (a parallel/tensor.ModelGroup) the cross-modal attention runs this
+    rank's heads; pooling, fusion and the classifier are replicated."""
     dtype = _compute_dtype(cfg)
     p = {k: cast_floating(params[k], dtype) for k in _HEAD_KEYS}
     a_enh, t_enh = cma.cross_modal_attention(
         p["cross"], a_seq, t_seq, a_mask, t_mask, num_heads=cfg.num_heads,
-        dropout_rate=cfg.cross_dropout, generator=generator, deterministic=deterministic)
+        dropout_rate=cfg.cross_dropout, generator=generator, deterministic=deterministic,
+        tp=tp)
     a_vec = pooling_ops.attentive_stats_pooling(p["pool_a"], a_enh, a_mask)
     t_vec = pooling_ops.attentive_stats_pooling(p["pool_t"], t_enh, t_mask)
     fused = fusion_mod.fusion(p["fusion"], a_vec, t_vec, dropout_rate=cfg.fusion_dropout,
@@ -274,12 +279,19 @@ def model_forward(params: dict, cfg: ModelConfig, batch: dict, *,
                   deterministic: bool = True,
                   generator: Optional[torch.Generator] = None,
                   use_openmax: bool = False,
-                  spec_augment: bool = False) -> ModelOutput:
+                  spec_augment: bool = False, tp=None) -> ModelOutput:
     """batch: audio [B, T] f32, audio_mask [B, T], text_ids [B, S] ints,
     text_mask [B, S]; optional quality_feats [B, 8], cond_feats [B, 12],
     asr_feats [B, 8]. Tensors or numpy arrays; they go to the device the
     parameters live on. `deterministic=False` (training) draws dropout, and
-    SpecAugment where `spec_augment`, from `generator`, which it needs."""
+    SpecAugment where `spec_augment`, from `generator`, which it needs.
+
+    `tp` (a parallel/tensor.ModelGroup) is the tensor-parallel forward:
+    `params` is this rank's view (parallel/tensor.local_params: the leaves
+    the 'model' rule shards are this rank's shards), both encoders and the
+    cross-modal attention split their heads and FFN columns over the
+    group, and everything else, the classifier included, is replicated.
+    Every rank of the group passes the same batch."""
     if not deterministic and generator is None:
         raise ValueError("model_forward: the training forward (deterministic=False) "
                          "needs a torch.Generator on the parameters' device")
@@ -288,7 +300,7 @@ def model_forward(params: dict, cfg: ModelConfig, batch: dict, *,
     dtype = _compute_dtype(cfg)
     p = encoder_params(params, cfg)
     wave, quality_feats, cond_feats = frontend_features(cfg, batch)
-    drop = dict(deterministic=deterministic, generator=generator)
+    drop = dict(deterministic=deterministic, generator=generator, tp=tp)
     a_seq, a_mask = encode_audio(p, cfg, wave.to(dtype), batch["audio_mask"],
                                  quality_feats=quality_feats, cond_feats=cond_feats,
                                  spec_augment=spec_augment, **drop)

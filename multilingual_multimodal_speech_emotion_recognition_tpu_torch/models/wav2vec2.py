@@ -246,15 +246,21 @@ def relative_position_bias(params: dict, cfg: Wav2Vec2Config, T: int) -> Tensor:
     return embed.float()[bucket].permute(2, 0, 1)
 
 
-def _gated_bias(pos_bias: Tensor, num_heads: int):
+def _gated_bias(pos_bias: Tensor, num_heads: int, heads: Optional[Tuple[int, int]] = None):
     """logit_bias(layer, x) of `layers.encoder_stack`: WavLM's gate, from
     the attention's input x [B, S, E] (after the LN in stable-LN mode), per
     (batch, head, query): sigmoid of gru_lin's two sums of 4, then
-    ga * (gb * gru_const - 1) + 2, [B, H, S, 1], times the bias, in f32."""
+    ga * (gb * gru_const - 1) + 2, [B, H, S, 1], times the bias, in f32.
+    `heads` = (lo, hi) restricts it to those heads (a tensor-parallel rank's:
+    pos_bias and gru_const are theirs already); all of them by default."""
+    lo, hi = heads or (0, num_heads)
+
     def bias(layer: dict, x: Tensor) -> Tensor:
         B, S, E = x.shape
-        proj = layers.linear(layer["gru_lin"], x.reshape(B, S, num_heads, E // num_heads))
-        gates = torch.sigmoid(proj.reshape(B, S, num_heads, 2, 4).sum(-1).float())
+        Dh = E // num_heads
+        x = x.narrow(-1, lo * Dh, (hi - lo) * Dh)
+        proj = layers.linear(layer["gru_lin"], x.reshape(B, S, hi - lo, Dh))
+        gates = torch.sigmoid(proj.reshape(B, S, hi - lo, 2, 4).sum(-1).float())
         ga, gb = gates[..., :1], gates[..., 1:]
         const = layer["gru_const"].float()[None, None, :, None]
         gate = (ga * (gb * const - 1.0) + 2.0).permute(0, 2, 1, 3)
@@ -265,17 +271,49 @@ def _gated_bias(pos_bias: Tensor, num_heads: int):
 def _encoder_stack(stacked: dict, cfg: Wav2Vec2Config, h: Tensor, attn_bias: Tensor, *,
                    generator: Optional[torch.Generator] = None, deterministic: bool = True,
                    remat: remat_lib.RematSpec = False,
-                   pos_bias: Optional[Tensor] = None) -> Tensor:
+                   pos_bias: Optional[Tensor] = None, tp=None) -> Tensor:
     """The transformer layers (post-LN, or pre-LN with do_stable_layer_norm);
-    attn_bias: additive f32 [B, 1, 1, S]; pos_bias: WavLM's [H, S, S]."""
+    attn_bias: additive f32 [B, 1, 1, S]; pos_bias: WavLM's [H, S, S] (this
+    rank's heads' under `tp`, a parallel/tensor.ModelGroup, whose gate
+    reads its heads' chunk of the input with the replicated gru_lin and its
+    heads' gru_const)."""
+    H = cfg.num_attention_heads
+    heads = None
+    if tp is not None and pos_bias is not None:
+        from ..parallel import tensor as tpl
+        heads = tp.span(H, "WavLM gate heads")
+        stacked = {**stacked,
+                   "gru_lin": {k: tpl.copy_to_model(v, tp)
+                               for k, v in stacked["gru_lin"].items()},
+                   "gru_const": tpl.local_part(stacked["gru_const"], -1, heads, tp)}
     return layers.encoder_stack(
-        stacked, h, attn_bias, num_heads=cfg.num_attention_heads, eps=cfg.layer_norm_eps,
+        stacked, h, attn_bias, num_heads=H, eps=cfg.layer_norm_eps,
         pre_ln=cfg.do_stable_layer_norm,
-        logit_bias=None if pos_bias is None else _gated_bias(pos_bias,
-                                                             cfg.num_attention_heads),
+        logit_bias=None if pos_bias is None else _gated_bias(pos_bias, H, heads),
         attention_dropout=cfg.attention_dropout, hidden_dropout=cfg.hidden_dropout,
         activation_dropout=cfg.activation_dropout, generator=generator,
-        deterministic=deterministic, remat=remat)
+        deterministic=deterministic, remat=remat, tp=tp)
+
+
+def _positional_conv(params: dict, cfg: Wav2Vec2Config, h: Tensor, tp=None) -> Tensor:
+    """GELU of the grouped positional conv of h [B, T, C], [B, T, C]. Under
+    `tp` (a parallel/tensor.ModelGroup) this rank convolves its groups alone
+    (its output channels are its shard of the kernel, and a group reads its
+    own channels of h), then the channels are gathered over the group."""
+    G, K = cfg.num_conv_pos_embedding_groups, cfg.num_conv_pos_embeddings
+    x, conv, groups = h.transpose(1, 2), params["pos_conv"], G
+    if tp is not None:
+        from ..parallel import tensor as tpl
+        g_lo, g_hi = tp.span(G, "pos_conv groups")
+        per = h.shape[-1] // G
+        span = (g_lo * per, g_hi * per)
+        x = tpl.local_part(x, 1, span, tp)
+        conv = {**conv, "bias": tpl.local_part(conv["bias"], 0, span, tp)}
+        groups = g_hi - g_lo
+    pos = _conv1d(conv, x, 1, groups=groups, padding=K // 2)
+    # an even kernel with padding k//2 gives T+1 frames: keep the first T
+    pos = layers.gelu(pos[:, :, : h.shape[1]].transpose(1, 2))
+    return pos if tp is None else tpl.gather_from_model(pos, 2, tp)
 
 
 def wav2vec2_encode(params: dict, cfg: Wav2Vec2Config, wave: Tensor,
@@ -283,11 +321,13 @@ def wav2vec2_encode(params: dict, cfg: Wav2Vec2Config, wave: Tensor,
                     deterministic: bool = True,
                     generator: Optional[torch.Generator] = None,
                     spec_augment: bool = False,
-                    remat: remat_lib.RematSpec = False) -> Tuple[Tensor, Tensor]:
+                    remat: remat_lib.RematSpec = False, tp=None) -> Tuple[Tensor, Tensor]:
     """wave: [B, T] raw 16 kHz audio in the compute dtype; sample_mask:
     [B, T] (1 valid). Returns (hidden [B, T', H], frame_mask [B, T']).
     Training draws SpecAugment (where `spec_augment` and the config ask
-    for it) and dropout from `generator`."""
+    for it) and dropout from `generator`. Under `tp` (a
+    parallel/tensor.ModelGroup) the positional conv and the layers run
+    tensor-parallel on this rank's shards; the rest is replicated."""
     if normalize:
         wave = normalize_waveform(wave, sample_mask).to(wave.dtype)
     # the unfused extractor, as the JAX package's wav2vec2_encode runs it
@@ -297,21 +337,23 @@ def wav2vec2_encode(params: dict, cfg: Wav2Vec2Config, wave: Tensor,
     if spec_augment and not deterministic and cfg.apply_spec_augment:
         h = _spec_augment(generator, cfg, h, frame_mask, params["masked_spec_embed"])
     h = h * frame_mask[..., None].to(h.dtype)
-    pos = _conv1d(params["pos_conv"], h.transpose(1, 2), 1,
-                  groups=cfg.num_conv_pos_embedding_groups,
-                  padding=cfg.num_conv_pos_embeddings // 2)
-    # an even kernel with padding k//2 gives T+1 frames: keep the first T
-    pos = layers.gelu(pos[:, :, : h.shape[1]].transpose(1, 2))
-    h = h + pos
+    h = h + _positional_conv(params, cfg, h, tp)
     if not cfg.do_stable_layer_norm:
         # the post-LN encoder normalises before the stack, the stable-LN one after
         h = layers.layer_norm(params["encoder_ln"], h, eps=cfg.layer_norm_eps)
     h = layers.dropout(generator, h, cfg.hidden_dropout, deterministic)
-    pos_bias = (relative_position_bias(params, cfg, h.shape[1])
-                if cfg.gated_relpos_bias else None)
+    pos_bias = None
+    if cfg.gated_relpos_bias:
+        table = params
+        if tp is not None:
+            from ..parallel import tensor as tpl
+            table = {"rel_attn_embed": tpl.local_part(
+                params["rel_attn_embed"], -1,
+                tp.span(cfg.num_attention_heads, "WavLM bias heads"), tp)}
+        pos_bias = relative_position_bias(table, cfg, h.shape[1])
     h = _encoder_stack(params["layers"], cfg, h, layers.key_mask_bias(frame_mask),
                        generator=generator, deterministic=deterministic, remat=remat,
-                       pos_bias=pos_bias)
+                       pos_bias=pos_bias, tp=tp)
     if cfg.do_stable_layer_norm:
         h = layers.layer_norm(params["encoder_ln"], h, eps=cfg.layer_norm_eps)
     return h, frame_mask

@@ -49,9 +49,11 @@ def position_ids_from_input_ids(input_ids: Tensor, pad_token_id: int) -> Tensor:
 def xlmr_encode(params: dict, cfg: XLMRConfig, input_ids: Tensor,
                 attention_mask: Tensor, *, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None,
-                remat: remat_lib.RematSpec = False) -> Tensor:
+                remat: remat_lib.RematSpec = False, tp=None) -> Tensor:
     """input_ids: [B, S] ints; attention_mask: [B, S] (1 valid).
-    Returns the last hidden state [B, S, hidden_size]."""
+    Returns the last hidden state [B, S, hidden_size]. Under `tp` (a
+    parallel/tensor.ModelGroup) the layers run tensor-parallel on this
+    rank's shards; the embeddings are replicated."""
     emb = params["embeddings"]
     ids = input_ids.to(torch.int64)
     pos_ids = position_ids_from_input_ids(ids, cfg.pad_token_id)
@@ -62,4 +64,4 @@ def xlmr_encode(params: dict, cfg: XLMRConfig, input_ids: Tensor,
         params["layers"], h, layers.key_mask_bias(attention_mask),
         num_heads=cfg.num_attention_heads, eps=cfg.layer_norm_eps,
         attention_dropout=cfg.attention_dropout, hidden_dropout=cfg.hidden_dropout,
-        generator=generator, deterministic=deterministic, remat=remat)
+        generator=generator, deterministic=deterministic, remat=remat, tp=tp)

@@ -9,19 +9,21 @@ batches sharded on 'data', parameters laid out by the JAX package's rules
 dimension placements (Shard(d) / Replicate()).
 
 What the placements decide is where each parameter, gradient and AdamW
-moment lives. The train step (train/train_step.py) gathers the parameters
-whole before its forward (an all-gather of every sharded leaf), runs the
-forward and backward on this rank's rows, gathers the rows' outputs so
-that the loss is the global batch's, and reduces the gradients back to
-the parameters' placements (a reduce-scatter over 'data'); the optimizer
-then updates each rank's shards. So the arithmetic is the one-process
-step's on the global batch. The 'model' axis shards storage only: each
-rank of a 'model' group runs the whole forward of its data shard's rows
-(the matmuls are not split, as GSPMD splits them in the JAX package), so
-a 'model' axis over 1 does that many times the work and, with every
-parameter gathered whole, saves no peak memory. The train loop and
-distillation therefore refuse one (train/loop.train_mesh); the step
-itself holds its arithmetic on any mesh.
+moment lives. The train step (train/train_step.py) takes each rank's view
+of the parameters (parallel/tensor.local_params: a dimension FSDP put on
+'data' gathered over 'data', a leaf the 'model' rule shards left as this
+rank's shard), runs the forward and backward on this rank's rows, with the
+encoders and the cross-modal attention split over the 'model' group as
+Megatron splits them (parallel/tensor.py: q/k/v and ffn_in column-parallel,
+out and ffn_out row-parallel, pos_conv by its groups; the rest
+replicated), gathers the rows' outputs so that the loss is the global
+batch's, and reduces the gradients back to the parameters' placements (a
+reduce-scatter or all-reduce over 'data'); the optimizer then updates each
+rank's shards. So the arithmetic is the one-process step's on the global
+batch, and a 'model' axis of N splits the matmuls of the sharded leaves N
+ways, as GSPMD splits them in the JAX package. The ranks of a 'model'
+group read the same rows (multihost.HostShardedLoader on 'data''s rank and
+size).
 """
 
 from __future__ import annotations
@@ -167,16 +169,33 @@ def param_shardings(params: dict, mesh, *, fsdp: bool = False,
 
 def shard_params(params: dict, mesh, *, fsdp: bool = False,
                  fsdp_min_size: Optional[int] = None) -> dict:
-    """The tree as DTensors under param_shardings (rank 0's values, which
-    every rank holds alike when they come from the same seed or file; a
-    DTensor leaf is gathered whole first). COLLECTIVE."""
-    from torch.distributed.tensor import DTensor, distribute_tensor
+    """The tree as DTensors under param_shardings, with rank 0's values (a
+    DTensor leaf is gathered whole first; each leaf is broadcast from rank
+    0, then every rank keeps its shard, so the only collective is a
+    broadcast). A leaf whose sharded dimension the mesh axis does not divide
+    raises, naming it. COLLECTIVE."""
+    from torch.distributed.tensor import DTensor, Shard
     layout = _leaf_placements(mesh, fsdp=fsdp, fsdp_min_size=fsdp_min_size)
+    coord = mesh.get_coordinate()
+    world = dist.get_world_size()
 
     def put(path, t):
         if isinstance(t, DTensor):
             t = t.full_tensor()
-        return distribute_tensor(t.detach(), mesh, layout(path, t))
+        t = t.detach().to(multihost._mesh_device(mesh)).contiguous()
+        if world > 1:
+            t = t.clone()
+            dist.broadcast(t, src=0)
+        pls = layout(path, t)
+        for axis, pl in enumerate(pls):
+            if isinstance(pl, Shard):
+                n = mesh.size(axis)
+                if t.shape[pl.dim] % n:
+                    raise ValueError(f"{path}: the '{mesh.mesh_dim_names[axis]}' axis of {n} "
+                                     f"does not divide its dimension {pl.dim} of "
+                                     f"{t.shape[pl.dim]}")
+                t = t.chunk(n, dim=pl.dim)[coord[axis]]
+        return DTensor.from_local(t.contiguous(), mesh, pls, run_check=False)
     return map_leaves(params, put)
 
 

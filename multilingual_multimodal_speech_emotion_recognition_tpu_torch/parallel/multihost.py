@@ -12,12 +12,15 @@ same collectives; this module supplies the pieces that keep that true:
                        torchrun's environment (NCCL on cuda:LOCAL_RANK, gloo
                        on the CPU); a no-op without either; idempotent.
   HostShardedLoader    a rank's view of a GLOBAL bucketed epoch: every rank
-                       builds the same plan and decodes only its own rows,
-                       so the step counts agree by construction.
+                       builds the same plan and decodes only its data
+                       shard's rows (the ranks of a 'model' group the same
+                       rows), so the step counts agree by construction.
   put_sharded()        this rank's rows as a DTensor sharded on 'data'.
   local_rows()         this rank's rows of a row-sharded DTensor.
   allgather_rows()     a host array with a row count that differs per rank,
-                       gathered in rank order onto every rank.
+                       gathered over the 'data' ranks onto every rank, in
+                       rank order or, batch by batch, in one process's row
+                       order.
   host_replicated()    every DTensor leaf as the whole tensor (full_tensor),
                        so that the coordinator can write it.
   any_process()        True on every rank iff any rank set the flag.
@@ -29,6 +32,7 @@ is missing: a failed initialisation raises.
 
 from __future__ import annotations
 
+import functools
 import os
 from typing import Optional, Union
 
@@ -136,26 +140,40 @@ def any_process(flag: bool) -> bool:
     return bool(t.item())
 
 
-def allgather_rows(x: np.ndarray) -> np.ndarray:
-    """Every rank's host rows, concatenated in rank order, on every rank:
-    the row counts are gathered first, then the rows padded to the largest
-    count, and the padding stripped. So every rank computes the same
+def _all_gather(t: torch.Tensor, group, n: int) -> list:
+    parts = [torch.empty_like(t) for _ in range(n)]
+    dist.all_gather(parts, t, group=group)
+    return [p.cpu().numpy() for p in parts]
+
+
+def allgather_rows(x: np.ndarray, *, mesh=None, batches=None) -> np.ndarray:
+    """The host rows of every 'data' rank of `mesh` (of every rank without
+    one) on every rank: the row counts are gathered first, then the rows
+    padded to the largest count, and the padding stripped. In rank order;
+    with `batches`, this rank's row count in each batch of its loader (every
+    rank has as many batches), batch by batch instead: batch 0's rows of
+    data rank 0, 1, ..., then batch 1's, which is one process's order of a
+    HostShardedLoader's rows. The ranks of a 'model' group hold the same
+    rows and are not gathered twice. So every rank computes the same
     metrics and the same Weibull fit. COLLECTIVE; the identity on one
-    rank."""
-    if world_size() == 1:
+    data rank."""
+    from .mesh import DATA_AXIS
+    group = None if mesh is None else mesh[DATA_AXIS].get_group()
+    n = world_size() if mesh is None else mesh[DATA_AXIS].size()
+    if n == 1:
         return x
-    world, dev = world_size(), rank_device()
+    dev = rank_device()
     x = np.ascontiguousarray(x)
-    count = torch.tensor([x.shape[0]], dtype=torch.int64, device=dev)
-    counts = [torch.zeros_like(count) for _ in range(world)]
-    dist.all_gather(counts, count)
-    counts = [int(c.item()) for c in counts]
-    padded = torch.zeros((max(counts),) + x.shape[1:], dtype=torch.from_numpy(x).dtype,
-                         device=dev)
+    per = np.asarray([x.shape[0]] if batches is None else batches, np.int64)
+    counts = np.stack(_all_gather(torch.from_numpy(per).to(dev), group, n))
+    totals = counts.sum(1)
+    padded = torch.zeros((int(totals.max()),) + x.shape[1:],
+                         dtype=torch.from_numpy(x).dtype, device=dev)
     padded[: x.shape[0]] = torch.from_numpy(x).to(dev)
-    gathered = [torch.empty_like(padded) for _ in range(world)]
-    dist.all_gather(gathered, padded)
-    return np.concatenate([g[:n].cpu().numpy() for g, n in zip(gathered, counts)])
+    rows = [g[:t] for g, t in zip(_all_gather(padded, group, n), totals)]
+    starts = np.cumsum(counts, axis=1) - counts
+    return np.concatenate([rows[r][starts[r, b]: starts[r, b] + counts[r, b]]
+                           for b in range(counts.shape[1]) for r in range(n)])
 
 
 def put_sharded(x, mesh):
@@ -201,23 +219,34 @@ def host_replicated(tree):
     return map_leaves(tree, lambda _, t: t.full_tensor() if isinstance(t, DTensor) else t)
 
 
+def loader_class(mesh):
+    """The loader of a run on `mesh`: each data shard's rows of the global
+    batch (HostShardedLoader), or the whole batch without a mesh."""
+    return functools.partial(HostShardedLoader, mesh=mesh) if mesh is not None else BucketedLoader
+
+
 class HostShardedLoader(BucketedLoader):
     """A rank's view of a GLOBAL bucketed epoch.
 
     `batch_size` is the GLOBAL batch. Every rank builds the same global
     plan (BucketedLoader._plan depends only on the manifest, the seed and
     the epoch), then decodes, tokenises and assembles only the global rows
-    [p * Bl, (p + 1) * Bl) of each batch (Bl = batch_size / ranks), the
-    rows `put_sharded` gives this rank. So every rank yields the same
-    number of batches, each decodes 1 / P of the audio, and a partial last
-    batch pads each rank's block on its own (`example_mask` marks the real
-    rows). `batches_per_epoch` stays the global count."""
+    [p * Bl, (p + 1) * Bl) of each batch (Bl = batch_size / P), the rows
+    `put_sharded` gives this rank. P and p are `mesh`'s 'data' size and
+    this rank's index on it where a mesh is given (the ranks of a 'model'
+    group read the same rows), else `process_count` and `process_index`
+    (one shard of a plan, as its tests build it). So every rank yields the
+    same number of batches, each data shard decodes 1 / P of the audio, and
+    a partial last batch pads each rank's block on its own (`example_mask`
+    marks the real rows). `batches_per_epoch` stays the global count."""
 
-    def __init__(self, dataset, *, batch_size: int,
-                 process_index: Optional[int] = None,
-                 process_count: Optional[int] = None, **kw):
-        pc = world_size() if process_count is None else process_count
-        pi = rank() if process_index is None else process_index
+    def __init__(self, dataset, *, batch_size: int, mesh=None,
+                 process_index: int = 0, process_count: int = 1, **kw):
+        if mesh is not None:
+            from .mesh import DATA_AXIS
+            process_index = mesh[DATA_AXIS].get_local_rank()
+            process_count = mesh[DATA_AXIS].size()
+        pi, pc = process_index, process_count
         if batch_size % pc:
             raise ValueError(f"global batch size {batch_size} not divisible by {pc} ranks")
         super().__init__(dataset, batch_size=batch_size, **kw)

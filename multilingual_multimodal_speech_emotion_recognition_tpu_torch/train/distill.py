@@ -28,13 +28,15 @@ Each step's dropout is drawn from a torch.Generator on the device seeded
 from (TrainConfig.seed, global step), as the train loop's steps are.
 
 Under a process group (parallel/multihost.py) the run takes the train
-loop's pod branches: the student's parameters sharded on the mesh of the
-teacher config's `mesh` section ('data' only, train/loop.train_mesh), each rank distilling its share of the
-global batch (HostShardedLoader, the teacher replicated on every rank),
-the loss of the global batch (the rows' student and teacher outputs
-gathered, train/train_step.RowGather), the gradients reduced onto the
-parameters' placements, the validation gathered onto every rank, and rank
-0 alone writing the metrics and the checkpoints.
+loop's pod branches: the student's and the teacher's parameters laid out on
+the mesh of the teacher config's `mesh` section (train/loop.train_mesh;
+the student's with FSDP where the section asks), each data shard
+distilling its share of the global batch (HostShardedLoader on 'data''s
+rank and size), both forwards tensor-parallel over the 'model' group
+(parallel/tensor.py), the loss of the global batch (the rows' student and
+teacher outputs gathered over 'data', train/train_step.RowGather), the
+gradients reduced onto the parameters' placements, the validation gathered
+onto every rank, and rank 0 alone writing the metrics and the checkpoints.
 """
 
 from __future__ import annotations
@@ -47,12 +49,12 @@ from typing import Dict, Optional, Union
 import torch
 
 from ..config import Config, ModelConfig, TrainConfig, to_json
-from ..data.pipeline import TRAIN_HOST_KEYS, BucketedLoader, SERDataset
+from ..data.pipeline import TRAIN_HOST_KEYS, SERDataset
 from ..data.prefetch import device_prefetch
 from ..data.tokenizer import Tokenizer, get_tokenizer
 from ..models import layers, model as mdl
 from ..ops import losses
-from ..parallel import mesh as mesh_lib, multihost as mh
+from ..parallel import mesh as mesh_lib, multihost as mh, tensor as tensor_lib
 from ..utils.metrics import MetricsWriter, weighted_f1
 from ..utils.runtime import params_on, resolve_device, to_device, tree_to
 from . import checkpoint as ckpt_lib, loop as loop_lib, optimizer as opt_lib
@@ -124,17 +126,20 @@ def _kd_loss(student_logits: torch.Tensor, teacher_logits: torch.Tensor,
 def distill_loss(params: dict, teacher_params: dict, batch: dict,
                  generator: torch.Generator, *, teacher_cfg: ModelConfig,
                  student_cfg: ModelConfig, tcfg: TrainConfig, dcfg: DistillConfig,
-                 rows: ts.Rows = None):
+                 rows: ts.Rows = None, tp=None):
     """(loss, metrics) of one batch on the batch's device: the teacher's
     eval forward under torch.no_grad(), the student's training forward
     with dropout from `generator`, and the loss of the module docstring.
     The metrics are detached 0-dim tensors. `rows` (a train_step.RowGather)
-    makes it the global batch's loss when `batch` holds this rank's rows."""
+    makes it the global batch's loss when `batch` holds this rank's rows;
+    `tp` (a parallel/tensor.ModelGroup) runs both forwards tensor-parallel
+    on this rank's views of the two trees."""
     with torch.no_grad():
-        t_out = mdl.model_forward(teacher_params, teacher_cfg, batch, deterministic=True)
+        t_out = mdl.model_forward(teacher_params, teacher_cfg, batch, deterministic=True,
+                                  tp=tp)
     t_logits, t_fused = t_out.logits, t_out.fused
     s_out = mdl.model_forward(params, student_cfg, batch, deterministic=False,
-                              generator=generator)
+                              generator=generator, tp=tp)
     s_logits, s_fused, labels = s_out.logits, s_out.fused, batch["labels"].long()
     if rows is not None:
         s_logits, s_fused, labels, t_logits, t_fused = (
@@ -164,7 +169,8 @@ def make_distill_step(teacher_cfg: ModelConfig, student_cfg: ModelConfig,
     update of the student's parameters and opt_state, in place. `seed`
     (an int) seeds the step's dropout generator. Sharded student
     parameters and batch (DTensors) take the train step's route
-    (train/train_step.py)."""
+    (train/train_step.py); the teacher's, sharded on the same mesh, its
+    tensor-parallel eval forward."""
     dev = resolve_device(device)
     generator = torch.Generator(device=dev)
     cfgs = dict(teacher_cfg=teacher_cfg, student_cfg=student_cfg, tcfg=tcfg, dcfg=dcfg)
@@ -173,14 +179,17 @@ def make_distill_step(teacher_cfg: ModelConfig, student_cfg: ModelConfig,
              seed: int) -> Dict[str, torch.Tensor]:
         params_on(params, dev)
         params_on(teacher_params, dev)
-        mesh = ts.sharded_mesh(params)
+        mesh = tensor_lib.mesh_of(params)
         batch = {k: to_device(opt_lib.local(v), dev) for k, v in batch.items()}
         generator.manual_seed(seed)
         trainable = optimizer.trainable(params)
         paths = [p for p, _ in trainable]
         view, inputs = ts.trainable_view(params, paths, mesh)
-        loss, metrics = distill_loss(view, teacher_params, batch, generator, **cfgs,
-                                     rows=ts.RowGather(mesh) if mesh is not None else None)
+        teacher_view, _ = tensor_lib.split(teacher_params)
+        pod = mesh is not None
+        loss, metrics = distill_loss(view, teacher_view, batch, generator, **cfgs,
+                                     rows=ts.RowGather(mesh) if pod else None,
+                                     tp=tensor_lib.model_group(mesh) if pod else None)
         grads = torch.autograd.grad(loss, inputs, allow_unused=True, materialize_grads=True)
         grads = ts.reduce_grads(grads, [p for _, p in trainable], mesh)
         optimizer.apply_(params, dict(zip(paths, grads)), opt_state)
@@ -208,8 +217,8 @@ def distill(teacher_params: Dict, teacher_cfg: Config, *,
     tok = tokenizer or get_tokenizer(
         vocab_size=student_mcfg.text.vocab_size)
 
-    mesh = loop_lib.train_mesh(teacher_cfg.mesh, dev)
-    Loader = mh.HostShardedLoader if mh.world_size() > 1 else BucketedLoader
+    mesh = loop_lib.train_mesh(teacher_cfg.mesh, dev, teacher_cfg.model, student_mcfg)
+    Loader = mh.loader_class(mesh)
     train_loader = Loader(SERDataset(train_manifest, teacher_cfg.data),
                           batch_size=tcfg.batch_size, tokenizer=tok,
                           shuffle=True, seed=tcfg.seed, drop_remainder=True)
@@ -227,6 +236,7 @@ def distill(teacher_params: Dict, teacher_cfg: Config, *,
     if mesh is not None:
         params = mesh_lib.shard_params(params, mesh, fsdp=teacher_cfg.mesh.fsdp,
                                        fsdp_min_size=teacher_cfg.mesh.fsdp_min_size)
+        teacher_params = mesh_lib.shard_params(teacher_params, mesh)
 
     steps_per_epoch = max(1, train_loader.batches_per_epoch())
     optimizer = opt_lib.make_train_optimizer(

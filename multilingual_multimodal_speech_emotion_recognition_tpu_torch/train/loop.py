@@ -13,15 +13,18 @@ fresh backbones (models/model.py:load_pretrained_backbones).
 
 Under a process group (parallel/multihost.initialize: torchrun, or the
 train CLI's multi-host flags) the loop takes the JAX package's pod
-branches: the mesh of cfg.mesh ('data' only: train_mesh refuses a
-'model' axis), the parameters sharded on it after init
-and after a resume (parallel/mesh.shard_params, FSDP by cfg.mesh.fsdp),
-the batch sharded on 'data' (TrainConfig.batch_size is the global batch;
-with more than one rank each decodes its share, HostShardedLoader), the
-metrics JSONL and the progress lines on rank 0 alone, the validation and
-Weibull passes' logits, labels and features gathered onto every rank
-(allgather_rows), so every rank computes the same F1 and the same fit, and
-the SIGTERM flag agreed by every rank (any_process) before any acts on it.
+branches: the ('data', 'model') mesh of cfg.mesh, the parameters sharded on
+it after init and after a resume (parallel/mesh.shard_params: the 'model'
+rule, FSDP by cfg.mesh.fsdp), the batch sharded on 'data'
+(TrainConfig.batch_size is the global batch; each data shard decodes its
+share, HostShardedLoader on 'data''s rank and size, and the ranks of a
+'model' group the same rows), the step and the validation and Weibull
+passes tensor-parallel over the 'model' group (parallel/tensor.py), the
+metrics JSONL, the progress lines and the checkpoints (gathered whole) on
+rank 0 alone, the validation and Weibull passes' logits, labels and
+features gathered over 'data' onto every rank (allgather_rows), so every
+rank computes the same F1 and the same fit, and the SIGTERM flag agreed by
+every rank (any_process) before any acts on it.
 
 The validation pass and the Weibull fit's feature pass are the eval
 forward under torch.inference_mode(), so they run the classifier's kernel
@@ -46,11 +49,12 @@ from ..config import Config, to_json
 from ..data.pipeline import EVAL_HOST_KEYS, TRAIN_HOST_KEYS, BucketedLoader, SERDataset
 from ..data.prefetch import device_prefetch
 from ..data.tokenizer import Tokenizer, get_tokenizer
-from ..eval.evaluate import make_eval_step
+from ..eval.evaluate import eval_view, gather_rows, make_eval_step
 from ..models import model as mdl
 from ..ops import openmax as om
 from ..parallel import mesh as mesh_lib
 from ..parallel import multihost as mh
+from ..parallel.tensor import check_model_axis
 from ..utils.metrics import MetricsWriter, weighted_f1
 from ..utils.runtime import map_leaves, resolve_device
 from . import checkpoint as ckpt_lib
@@ -79,12 +83,13 @@ def evaluate(params: dict, cfg: Config, loader: BucketedLoader, *,
              device: Device = None) -> Dict[str, np.ndarray]:
     """The eval pass over the loader's epoch 0: logits, labels and preds
     of the real rows (and the penultimate features), as numpy arrays.
-    Sharded parameters are gathered whole first. With more than one rank
-    each runs its loader's rows and the results are gathered onto every
-    rank in rank order (COLLECTIVE)."""
+    Sharded parameters run the tensor-parallel forward on this rank's view
+    (eval/evaluate.eval_view). Under a group each data shard runs its
+    loader's rows and the results are gathered over 'data' onto every rank
+    in one process's order (COLLECTIVE)."""
     dev = resolve_device(device)
-    params = mh.host_replicated(params)
-    step = make_eval_step(cfg.model, use_openmax=use_openmax, device=dev)
+    params, tp, mesh = eval_view(params)
+    step = make_eval_step(cfg.model, use_openmax=use_openmax, device=dev, tp=tp)
     logits_all, labels_all, feats_all = [], [], []
     for batch, host in device_prefetch(loader.epoch(0), dev, skip=EVAL_HOST_KEYS):
         logits, feats, _ = step(params, batch)
@@ -96,17 +101,14 @@ def evaluate(params: dict, cfg: Config, loader: BucketedLoader, *,
     logits = (np.concatenate(logits_all) if logits_all
               else np.zeros((0, cfg.model.num_labels), np.float32))
     labels = np.concatenate(labels_all) if labels_all else np.zeros((0,), np.int32)
-    pod = mh.world_size() > 1
-    if pod:
-        logits, labels = mh.allgather_rows(logits), mh.allgather_rows(labels)
-    out = {"logits": logits, "labels": labels,
-           "preds": logits.argmax(-1) if len(logits) else np.zeros((0,), np.int64)}
+    per_batch = [len(x) for x in labels_all]
+    out = gather_rows({"logits": logits, "labels": labels}, mesh, per_batch)
+    logits = out["logits"]
+    out["preds"] = logits.argmax(-1) if len(logits) else np.zeros((0,), np.int64)
     if collect_features:
-        f = np.concatenate(feats_all) if feats_all else None
-        if pod:
-            # every rank has rows here or none does: the loaders share one plan
-            f = mh.allgather_rows(f) if f is not None else None
-        out["features"] = f
+        # every rank has batches here or none does: the loaders share one plan
+        out["features"] = (gather_rows({"f": np.concatenate(feats_all)}, mesh,
+                                       per_batch)["f"] if feats_all else None)
     return out
 
 
@@ -138,19 +140,18 @@ class PreemptionGuard:
         return False
 
 
-def train_mesh(mcfg, device: torch.device):
+def train_mesh(mcfg, device: torch.device, *model_cfgs):
     """The mesh of `mcfg` (a config.MeshConfig) when a process group is up,
-    one rank included (the pod branches), else None. A 'model' axis over 1
-    is refused: the port's 'model' placements shard storage only
-    (parallel/mesh.py), so each rank of a 'model' group would run its data
-    shard's whole step, that many times the work for no memory saved."""
+    one rank included (the pod branches), else None. A 'model' axis that
+    does not divide the heads, FFN widths or positional-conv groups of each
+    of `model_cfgs` (the models the run splits) raises, naming the leaf
+    (parallel/tensor.check_model_axis)."""
     if not mh.group_up():
         return None
-    if mcfg.model_axis > 1:
-        raise ValueError(f"a 'model' mesh axis of {mcfg.model_axis} is not ported yet: the "
-                         "port's 'model' axis shards storage, not the matmuls (ROADMAP item "
-                         "16's rest); shard over 'data' with fsdp instead")
+    for model_cfg in model_cfgs:
+        check_model_axis(model_cfg, mcfg.model_axis)
     return mesh_lib.mesh_from_config(mcfg, device=device)
+
 
 
 def train(cfg: Config, *, train_manifest: str, val_manifest: str,
@@ -170,11 +171,11 @@ def train(cfg: Config, *, train_manifest: str, val_manifest: str,
     dev = resolve_device(device)
     tok = tokenizer or get_tokenizer(vocab_size=cfg.model.text.vocab_size)
     save_root = Path(tcfg.save_dir)
-    mesh = train_mesh(cfg.mesh, dev)
+    mesh = train_mesh(cfg.mesh, dev, cfg.model)
     progress = progress and mh.is_coordinator()
     writer = (MetricsWriter(log_path or str(save_root / "metrics.jsonl"))
               if mh.is_coordinator() else _NullWriter())
-    Loader = mh.HostShardedLoader if mh.world_size() > 1 else BucketedLoader
+    Loader = mh.loader_class(mesh)
     train_loader = Loader(SERDataset(train_manifest, cfg.data),
                           batch_size=tcfg.batch_size, tokenizer=tok,
                           shuffle=True, seed=tcfg.seed, drop_remainder=True)
@@ -337,7 +338,7 @@ def train(cfg: Config, *, train_manifest: str, val_manifest: str,
     if best_path is not None and best_path != last_path:
         b_params, b_meta = ckpt_lib.restore_checkpoint(best_path, device=dev)
         b_opt = ckpt_lib.restore_opt_state(best_path, device=dev)
-        save(best_path, fit_weibull_into(b_params), b_opt,
+        save(best_path, fit_weibull_into(shard(b_params)), b_opt,
              step=int(b_meta.get("step", 0)), epoch=int(b_meta.get("epoch", 0)),
              f1=float(b_meta.get("f1", 0.0)))
     return {"params": params, "opt_state": opt_state, "history": history,

@@ -71,6 +71,9 @@ def global_norm(tensors: List[Tensor]) -> Tensor:
     import torch.distributed as dist
     from torch.distributed.tensor import Replicate
     mesh = tensors[0].device_mesh
+    if mesh.size() == 1:   # one rank holds every element once: the plain norm
+        return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(
+            [local(t) for t in tensors])))
     sizes = mesh.shape
     copies = torch.tensor([math.prod(n for n, pl in zip(sizes, t.placements)
                                      if isinstance(pl, Replicate)) for t in tensors],

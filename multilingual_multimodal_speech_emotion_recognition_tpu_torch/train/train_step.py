@@ -29,15 +29,18 @@ zeroed and the optimizer applies nothing, the step count included
 
 Sharded parameters (DTensors, parallel/mesh.shard_params) and a sharded
 batch (parallel/mesh.shard_batch) take the same step on the global batch,
-as the JAX step does under GSPMD: the parameters are gathered whole (no
+as the JAX step does under GSPMD: each rank takes its view of the
+parameters (parallel/tensor.local_params: FSDP's 'data' dimensions gathered
+over 'data', the 'model' rule's leaves left as this rank's shards; no
 gradient through the gather), the forward and backward run on this rank's
-rows, and the rows' logits, uncertainty, fused vectors and labels are
-gathered (RowGather: an all-gather whose backward keeps this rank's rows)
+rows, tensor-parallel over the 'model' group (parallel/tensor.py), and the
+rows' logits, uncertainty, fused vectors and labels are gathered over
+'data' (RowGather: an all-gather whose backward keeps this rank's rows)
 before the losses, so the class counts, the anchor pull and every batch
 mean are the global batch's; the gradients are then reduced to the
-parameters' placements (a reduce-scatter over 'data') and the update runs
-on each rank's shards. With grad_accum > 1 the i-th microbatch is every rank's
-i-th slice of its rows.
+parameters' placements (a reduce-scatter or all-reduce over 'data') and the
+update runs on each rank's shards. With grad_accum > 1 the i-th microbatch
+is every rank's i-th slice of its rows.
 """
 
 from __future__ import annotations
@@ -50,6 +53,7 @@ from ..config import ModelConfig, TrainConfig
 from ..models import model as mdl
 from ..models import prototypes as protos
 from ..ops import audio_dsp, losses
+from ..parallel import tensor as tensor_lib
 from ..utils.runtime import map_leaves, params_on, resolve_device, to_device
 from .checkpoint import FROZEN_SUBTREES
 from .optimizer import AdamW, global_norm, local
@@ -108,6 +112,8 @@ class RowGather:
 
     def __call__(self, t: Tensor) -> Tensor:
         from torch.distributed.tensor import DTensor
+        if self.n == 1:
+            return t
         return DTensor.from_local(t, self.mesh, self.placements, run_check=False).full_tensor()
 
     def shared(self, tree):
@@ -118,19 +124,20 @@ Rows = Optional[RowGather]
 
 def compute_loss(params: dict, model_cfg: ModelConfig, train_cfg: TrainConfig,
                  batch: dict, *, generator: Optional[torch.Generator] = None,
-                 deterministic: bool = False, rows: Rows = None):
+                 deterministic: bool = False, rows: Rows = None, tp=None):
     """(loss, StepMetrics) of one batch; training draws dropout and
     SpecAugment from `generator`. The eval forward (deterministic=True)
     takes the classifier's kernel, which has no backward: on the card it
     raises under autograd. `rows` (a RowGather of the mesh) makes the loss
     the global batch's when `batch` holds this rank's rows; the anchor pull,
     a mean over each rank's rows, becomes the mean over the ranks (equal
-    row counts)."""
+    row counts). `tp` (a parallel/tensor.ModelGroup) runs the forward
+    tensor-parallel on this rank's view of the parameters."""
     if train_cfg.freeze_backbones:
         params = stop_backbone_gradients(params)
     out = mdl.model_forward(params, model_cfg, batch, deterministic=deterministic,
                             generator=generator, use_openmax=False,
-                            spec_augment=not deterministic)
+                            spec_augment=not deterministic, tp=tp)
     labels = to_device(batch["labels"], out.logits.device).long()
     logits, uncertainty, fused, anchor = out.logits, out.uncertainty, out.fused, out.anchor_loss
     if rows is not None:
@@ -165,25 +172,17 @@ def compute_loss(params: dict, model_cfg: ModelConfig, train_cfg: TrainConfig,
                              uncertainty=unc, proto=proto, supcon=sup, accuracy=acc)
 
 
-def sharded_mesh(params: dict):
-    """The mesh of a tree of DTensors (parallel/mesh.shard_params), or None
-    for plain tensors."""
-    from torch.distributed.tensor import DTensor
-    leaf = params["classifier"]["input_proj"]["kernel"]
-    return leaf.device_mesh if isinstance(leaf, DTensor) else None
-
-
 def trainable_view(params: dict, paths: List[str], mesh) -> Tuple[dict, List[Tensor]]:
     """(the tree with each leaf at `paths` a detached alias that wants a
-    gradient, those aliases in `paths` order). Under a mesh every leaf is
-    gathered whole first (no gradient through the gather). The caller's
-    tensors never carry autograd state."""
+    gradient, those aliases in `paths` order). Under a mesh the tree is this
+    rank's view first (parallel/tensor.local_params: nothing gathered over
+    'model'; no gradient through the gather). The caller's tensors never
+    carry autograd state."""
     wanted, leaves = set(paths), {}
+    if mesh is not None:
+        params = tensor_lib.local_params(params, mesh)
 
     def alias(path, t):
-        if mesh is not None:
-            with torch.no_grad():
-                t = t.full_tensor()
         if path not in wanted:
             return t
         leaves[path] = t.detach().requires_grad_(True)
@@ -194,17 +193,24 @@ def trainable_view(params: dict, paths: List[str], mesh) -> Tuple[dict, List[Ten
 
 
 def reduce_grads(grads: List[Tensor], params: List[Tensor], mesh) -> List[Tensor]:
-    """Under a mesh, each whole-tensor gradient (this rank's rows' share)
-    summed over 'data' into its parameter's placements (a reduce-scatter
-    where the parameter is sharded on 'data', an all-reduce where it is
-    not); otherwise the gradients as they are."""
+    """Under a mesh, each gradient of this rank's view (this rank's rows'
+    share; a 'model'-sharded leaf's shard, any other leaf whole on every
+    rank of the model group) summed over 'data' into its parameter's
+    placements (a reduce-scatter where the parameter is sharded on 'data',
+    an all-reduce where it is not; nothing where 'data' is one rank);
+    otherwise the gradients as they are."""
     if mesh is None:
         return list(grads)
     from torch.distributed.tensor import DTensor, Partial, Replicate
-    from ..parallel.mesh import DATA_AXIS
-    partial = [Partial() if n == DATA_AXIS else Replicate() for n in mesh.mesh_dim_names]
-    return [DTensor.from_local(g, mesh, partial, run_check=False).redistribute(
-        mesh, p.placements) for g, p in zip(grads, params)]
+    from ..parallel.mesh import MODEL_AXIS
+    data = Partial() if tensor_lib.data_shard(mesh)[1] > 1 else Replicate()
+    out = []
+    for g, p in zip(grads, params):
+        own = [pl if n == MODEL_AXIS else data for n, pl in zip(mesh.mesh_dim_names,
+                                                                p.placements)]
+        d = DTensor.from_local(g, mesh, own, run_check=False)
+        out.append(d if own == list(p.placements) else d.redistribute(mesh, p.placements))
+    return out
 
 
 @torch.no_grad()
@@ -240,15 +246,15 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig, optimizer: A
             speed_per_batch=train_cfg.augment_speed_per_batch)
         return {**mb, "audio": wave, "audio_mask": mask}
 
-    def loss_fn(p: dict, mb: dict, gate: Optional[Tensor], rows: Rows):
+    def loss_fn(p: dict, mb: dict, gate: Optional[Tensor], rows: Rows, tp):
         loss, metrics = compute_loss(p, model_cfg, train_cfg, mb, generator=generator,
-                                     rows=rows)
+                                     rows=rows, tp=tp)
         if consistency:
             # train_crema_final.py:283-292: a second forward on another
             # augmented view, its CE added on the gated steps
             fwd = stop_backbone_gradients(p) if train_cfg.freeze_backbones else p
             out2 = mdl.model_forward(fwd, model_cfg, augment(mb), deterministic=False,
-                                     generator=generator)
+                                     generator=generator, tp=tp)
             logits2, labels2 = out2.logits, mb["labels"]
             if rows is not None:
                 logits2, labels2 = rows(logits2), rows(labels2)
@@ -260,8 +266,9 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig, optimizer: A
 
     def step(params: dict, opt_state: dict, batch: dict, seed: int) -> StepMetrics:
         params_on(params, dev)
-        mesh = sharded_mesh(params)
+        mesh = tensor_lib.mesh_of(params)
         gather_rows = RowGather(mesh) if mesh is not None else None
+        tp = tensor_lib.model_group(mesh) if mesh is not None else None
         batch = {k: to_device(local(v), dev) for k, v in batch.items()}
         generator.manual_seed(seed)
         host_generator.manual_seed(seed)
@@ -274,7 +281,7 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig, optimizer: A
         view, inputs = trainable_view(params, paths, mesh)
 
         def grads_of(mb):
-            loss, metrics = loss_fn(view, mb, gate, gather_rows)
+            loss, metrics = loss_fn(view, mb, gate, gather_rows, tp)
             return torch.autograd.grad(loss, inputs, allow_unused=True,
                                        materialize_grads=True), metrics
 

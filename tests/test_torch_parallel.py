@@ -28,7 +28,7 @@ from multilingual_multimodal_speech_emotion_recognition_tpu_torch.eval import (
 from multilingual_multimodal_speech_emotion_recognition_tpu_torch.models import (
     layers as tl, model as tm)
 from multilingual_multimodal_speech_emotion_recognition_tpu_torch.parallel import (
-    mesh as tmesh, multihost as tmh)
+    mesh as tmesh, multihost as tmh, tensor as ttp)
 from multilingual_multimodal_speech_emotion_recognition_tpu_torch.train import (
     checkpoint as tckpt, distill as tdst, loop as tloop, optimizer as topt,
     train_step as tts)
@@ -70,11 +70,11 @@ def _local_rows(batch, mesh):
     return {k: v[r * rows:(r + 1) * rows] for k, v in batch.items()}
 
 
-def _assert_grads(got, want):
+def _assert_grads(got, want, atol=1e-7):
     (g, gn), (w, wn) = got, want
     assert g.keys() == w.keys()
     for path in w:
-        np.testing.assert_allclose(g[path], w[path], rtol=1e-4, atol=1e-7, err_msg=path)
+        np.testing.assert_allclose(g[path], w[path], rtol=1e-4, atol=atol, err_msg=path)
     np.testing.assert_allclose(gn, wn, rtol=1e-5)
 
 
@@ -88,9 +88,9 @@ def rank_train_step(params, batch, model_cfg, train_cfg, shape):
                                     grad_clip=train_cfg.grad_clip)
     state = opt.init(p)
     local = _local_rows(batch, mesh)
-    rows = tts.RowGather(mesh)
+    rows, tp = tts.RowGather(mesh), ttp.model_group(mesh)
     grads = _grads(p, [q for q, _ in opt.trainable(p)], mesh, lambda v: tts.compute_loss(
-        v, model_cfg, train_cfg, local, generator=torch.Generator(), rows=rows)[0])
+        v, model_cfg, train_cfg, local, generator=torch.Generator(), rows=rows, tp=tp)[0])
     step = tts.make_train_step(model_cfg, train_cfg, opt, device="cpu")
     metrics = step(p, state, tmesh.shard_batch(local, mesh), 0)
     from torch.distributed.tensor import DTensor, Shard
@@ -143,20 +143,17 @@ def _distill_loss(params, teacher, batch, teacher_cfg, student_cfg, train, rows)
                              dcfg=tdst.DistillConfig(feature_match_weight=0.1))[0]
 
 
-def rank_model_axis_refusal(which, cfg, manifest, save_dir):
-    """The ValueError the train loop or distill raises on a 'model' axis of
-    2 under the group, or None if it raised none."""
-    try:
-        if which == "train":
-            tloop.train(cfg, train_manifest=manifest, val_manifest=manifest, progress=False,
-                        device="cpu")
-        else:
-            tdst.distill({}, cfg, train_manifest=manifest, val_manifest=manifest,
-                         train_cfg=tcfg.TrainConfig(epochs=1, batch_size=4, save_dir=save_dir),
-                         progress=False, device="cpu")
-    except ValueError as e:
-        return str(e)
-    return None
+def rank_model_axis_run(which, cfg, manifest, save_dir, teacher):
+    """train or distill for cfg.train's epochs on cfg.mesh under the group
+    (one process without one): (best F1, the parameters gathered whole)."""
+    if which == "train":
+        res = tloop.train(cfg, train_manifest=manifest, val_manifest=manifest, progress=False,
+                          device="cpu")
+    else:
+        res = tdst.distill(teacher, cfg, train_manifest=manifest, val_manifest=manifest,
+                           dcfg=tdst.DistillConfig(student_preset="tiny"), train_cfg=cfg.train,
+                           progress=False, device="cpu")
+    return res["best_f1"], _numpy(tmh.host_replicated(res["params"]))
 
 
 def rank_cli(argv, model_json):
@@ -183,7 +180,13 @@ def test_sharded_train_step_equals_the_one_process_step(two_ranks, shape):
     (1, 2), against the one-process step on the global batch: the reduced
     gradients rtol 1e-4 / atol 1e-7 and their global norm rtol 1e-5 (the
     first AdamW step is nearly blind to a gradient's scale), the loss rtol
-    1e-5, the parameters rtol 1e-4 / atol 1e-5, a moment sharded."""
+    1e-5, the parameters rtol 1e-4 / atol 1e-5, a moment sharded. On
+    (1, 2) the step is tensor-parallel: its row-parallel products and the
+    gradients of its column-parallel inputs sum the two ranks' f32 partial
+    sums, which round in another order than one process's products. Its
+    reduced gradients are held to one process at atol 5e-7: on 8 tiny
+    batches the rounding needed at most 1.53e-7, and a doubled or a missing
+    all-reduce in copy_to_model's backward needs 0.31 or more."""
     jcfg = dropout_free(tiny_config())
     cfg = port_config(jcfg)
     train = tcfg.TrainConfig(**dataclasses.asdict(JTrain(
@@ -202,7 +205,7 @@ def test_sharded_train_step_equals_the_one_process_step(two_ranks, shape):
     want = _numpy(params)
     for loss, got, sharded, grads in two_ranks.run(rank_train_step, start, batch, cfg, train,
                                                    shape):
-        _assert_grads(grads, want_grads)
+        _assert_grads(grads, want_grads, atol=1e-7 if shape[1] == 1 else 5e-7)
         np.testing.assert_allclose(loss, want_loss, rtol=1e-5)
         assert got.keys() == want.keys()
         for path in want:
@@ -327,17 +330,32 @@ def test_distill_on_two_ranks_equals_one_process(two_ranks, cli_clips, tmp_path)
 
 @pytest.mark.parametrize("which", ["train", "distill"])
 def test_a_model_axis_is_refused_under_a_group(two_ranks, cli_clips, tmp_path, which):
-    """A 'model' axis shards storage only in the port, so every rank of a
-    model group would run the whole step on rows the loader splits over all
-    ranks: the train loop and distill refuse it on both ranks before any
-    collective, naming ROADMAP item 16's rest; without a group the mesh
-    section is not read."""
-    cfg = tcfg.Config(model=port_config(tiny_config()),
+    """A 'model' axis of 2 under the group (mesh (1, 2)) runs tensor-parallel:
+    the train loop and distill, 1 epoch at global batch 4 on rows both ranks
+    of the model group read, give one process's validation F1 and, within
+    the sharded step's tolerances, its parameters; rank 0 alone writes the
+    checkpoints. Without a group the mesh section is not read."""
+    model = port_config(dropout_free(tiny_config()))
+    cfg = tcfg.Config(model=model,
                       data=tcfg.DataConfig(dataset_root=str(cli_clips / "datasets")),
-                      train=tcfg.TrainConfig(epochs=1, batch_size=4, save_dir=str(tmp_path)),
+                      train=tcfg.TrainConfig(epochs=1, batch_size=4, lr=1e-4),
                       mesh=tcfg.MeshConfig(model_axis=2))
     assert tloop.train_mesh(cfg.mesh, torch.device("cpu")) is None
-    for err in two_ranks.run(rank_model_axis_refusal, which, cfg, str(cli_clips / "m.jsonl"),
-                             str(tmp_path)):
-        assert err is not None and "'model' mesh axis of 2" in err and "item 16's rest" in err
-    assert not list(tmp_path.iterdir())
+    teacher = tm.init_model(model, torch.Generator().manual_seed(1), device="cpu")
+    manifest = str(cli_clips / "m.jsonl")
+
+    def run(where, fn):
+        c = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train,
+                                                               save_dir=str(tmp_path / where)))
+        return fn(rank_model_axis_run, which, c, manifest, c.train.save_dir, teacher)
+
+    want_f1, want = run("one", lambda fn, *a: fn(*a))
+    for f1, got in run("pod", two_ranks.run):
+        assert f1 == want_f1
+        assert got.keys() == want.keys()
+        for path in want:
+            tol = (dict(rtol=6e-4, atol=6e-4) if path.endswith(KEY_BIASES)
+                   else dict(rtol=1e-4, atol=1e-5))
+            np.testing.assert_allclose(got[path], want[path], err_msg=path, **tol)
+    assert sorted(p.name for p in (tmp_path / "pod").iterdir()) == sorted(
+        p.name for p in (tmp_path / "one").iterdir())

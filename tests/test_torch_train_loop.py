@@ -295,8 +295,8 @@ def test_cli_builds_the_jax_cli_config(preset, clips, monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--fsdp", "--mesh_model", "2"], "--mesh_model 2 is not ported yet.*item 16's rest"),
-    (["--mesh_model", "2"], "--mesh_model 2 is not ported yet.*item 16's rest"),
+    (["--fsdp", "--mesh_model", "2"], "model 2 x dcn 1 needs that many ranks"),
+    (["--mesh_model", "2"], "model 2 x dcn 1 needs that many ranks"),
     (["--num_processes", "2"], "--process_id / RANK, --coordinator_address"),
     (["--mesh_dcn", "2"], "model 1 x dcn 2 needs that many ranks"),
     (["--coordinator_address", "localhost:1"],
@@ -305,9 +305,9 @@ def test_cli_builds_the_jax_cli_config(preset, clips, monkeypatch, tmp_path):
      "--num_processes / WORLD_SIZE, --coordinator_address")])
 def test_cli_flags_of_unported_modules_exit_with_their_roadmap_item(flag, item):
     """The parallelism flags on one process with no torchrun environment: a
-    'model' axis (storage-only in the port) exits naming its ROADMAP item; a
-    mesh that needs more ranks, or a multi-process rendezvous missing a
-    part, exits naming what it lacks; nothing falls back to one process.
+    mesh that needs more ranks (a 'model' or a dcn axis over 1), or a
+    multi-process rendezvous missing a part, exits naming what it lacks;
+    nothing falls back to one process.
     (--fsdp and --fsdp_min_size reach the Config as JAX's do:
     test_cli_builds_the_jax_cli_config.)"""
     with pytest.raises(SystemExit, match=item):
