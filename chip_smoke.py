@@ -164,7 +164,10 @@ Phases, one JSON line each:
                 16, SNR 10 and 0, zero-shot hi/bn/te, class 3 held out as
                 unknown, the benchmark on: seconds per part, the CLI's s,
                 every part in academic_evaluation.json, A1 once in each of
-                its eval forwards, peak memory;
+                its eval forwards, peak memory; every gathered pass finite,
+                and each K's few-shot F1, accuracy and recovery rate finite,
+                printed with its adaptation steps and the padded rows they
+                dropped;
               - the `distill` CLI, flagship -> 'small' student, 1 epoch,
                 batch 8: step ms (CUDA events between the steps that
                 `make_distill_step` returns), epoch s, A1
@@ -213,9 +216,9 @@ Phases, one JSON line each:
                 CLI on 10c's 48 clips and checkpoint against 10c's run:
                 every eval pass's gathered rows (logits, labels, indices,
                 SNRs, features) row for row, labels and indices equal, the
-                rest within AGREE_TOL; every F1 of its JSON and of each
-                rank's results equal, the binned ECE / MCE equal to their
-                value from the run's own rows, the other numbers (but
+                rest finite and within AGREE_TOL; every F1 of its JSON and
+                of each rank's results equal, the binned ECE / MCE equal to
+                their value from the run's own rows, the other numbers (but
                 timings and a sweep's arg-optima) within AGREE_TOL; its
                 seconds and A1's launches
 Then the script's wall time, the `kernels` line and, last,
@@ -2349,7 +2352,8 @@ def academic_phases(torch, wrappers, smi: str, cfg, work: Path) -> int:
     torch.cuda.reset_peak_memory_stats()
     reset_counts(wrappers)
     t0 = time.perf_counter()
-    with PassRows(ev) as passes:   # every pass's rows, kept for phase 12c
+    # every pass's rows, kept for phase 12c, and each K's adaptation steps
+    with PassRows(ev) as passes, AdaptSteps(few_shot) as adapt_steps:
         res = academic_cli.main(["--checkpoint", str(work / "checkpoint"), "--manifest",
                                  manifest, "--dataset_root", datasets, "--output_dir",
                                  str(out_dir), "--batch_size", "8", *ACADEMIC_ARGS])
@@ -2369,6 +2373,19 @@ def academic_phases(torch, wrappers, smi: str, cfg, work: Path) -> int:
             or set(res["zero_shot"]["per_language"]) != {"en", "hi", "bn", "te"}):
         raise AssertionError(f"academic_eval: {res['baseline']['num_samples']} samples, shots "
                              f"{[r['num_shots'] for r in res['few_shot']]}")
+    # every pass's rows finite (a partial batch's padded rows are dropped
+    # before each consumer), and each K's few-shot numbers
+    nonfinite = {f"pass {i}'s {k}": int((~np.isfinite(v)).sum())
+                 for i, rows in enumerate(passes.passes) for k, v in rows.items()
+                 if np.issubdtype(v.dtype, np.floating) and not np.isfinite(v).all()}
+    shots = [{"num_shots": r["num_shots"], "f1": r["f1_score"], "accuracy": r["accuracy"],
+              "recovery_rate": r["recovery_rate"], **steps_k}
+             for r, steps_k in zip(res["few_shot"], adapt_steps.runs)]
+    emit({"phase": "path", "path": "academic_eval CLI few-shot adaptation", "card": smi,
+          "shots": shots})
+    if nonfinite or not all(np.isfinite([r["f1_score"], r["accuracy"], r["recovery_rate"]]).all()
+                            for r in res["few_shot"]) or len(adapt_steps.runs) != 2:
+        raise AssertionError(f"academic_eval: non-finite entries {nonfinite}, few-shot {shots}")
     a1 += count["residual_stack"]
     bench = res["inference_benchmark"]
     emit({"phase": "path", "path": "academic_eval CLI (the 8-part battery)", "card": smi,
@@ -2899,12 +2916,40 @@ class PassRows:
         return [passes[i] for i in sorted(passes)]
 
 
+class AdaptSteps:
+    """While entered, each few-shot `adapt` (one a K) counts its adaptation
+    steps and the padded rows (example_mask 0) its batches held, in `runs`:
+    eval/few_shot.make_adapt_step, which each adapt calls once, wrapped."""
+
+    def __init__(self, few_shot):
+        self.few_shot, self.runs = few_shot, []
+
+    def __enter__(self):
+        make = self.make = self.few_shot.make_adapt_step
+
+        def counted(*args, **kwargs):
+            step, run = make(*args, **kwargs), {"steps": 0, "padded_rows": 0}
+            self.runs.append(run)
+
+            def counted_step(params, opt_state, batch, generator):
+                run["steps"] += 1
+                run["padded_rows"] += int((np.asarray(batch["example_mask"]) == 0).sum())
+                return step(params, opt_state, batch, generator)
+            return counted_step
+
+        self.few_shot.make_adapt_step = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.few_shot.make_adapt_step = self.make
+        return False
+
+
 def check_passes(got: list, want: list, tol: float):
     """Each pass's rows against one process's, row for row: integer columns
-    equal; in float ones the same entries NaN or infinite, with the same
-    values, and the finite ones within tol (rtol = atol = tol). (the
-    largest difference, the non-finite entries of each pass that has any,
-    every column out of bounds)."""
+    equal; float ones finite on both sides and within tol (rtol = atol =
+    tol). (the largest difference, the non-finite entries of each column
+    that has any on either side, every column out of bounds)."""
     if [sorted(p) for p in got] != [sorted(p) for p in want]:
         return 0.0, {}, [f"{len(got)} passes gathered {[sorted(p) for p in got]}, one "
                          f"process {len(want)}: {[sorted(p) for p in want]}"]
@@ -2918,18 +2963,14 @@ def check_passes(got: list, want: list, tol: float):
                 if not np.array_equal(gv, wv):
                     bad.append(f"{where} differs in {int((gv != wv).sum())} entries")
             else:
-                odd = ~np.isfinite(wv)
+                odd = ~np.isfinite(gv) | ~np.isfinite(wv)
                 if odd.any():
                     nonfinite[f"{i}/{k}"] = int(odd.sum())
-                if not (np.array_equal(~np.isfinite(gv), odd)
-                        and np.array_equal(gv[odd], wv[odd], equal_nan=True)):
-                    bad.append(f"{where}: {int((~np.isfinite(gv)).sum())} entries NaN or "
-                               f"infinite, one process {int(odd.sum())}")
                     continue
-                diff = np.abs(gv[~odd].astype(np.float64) - wv[~odd])
+                diff = np.abs(gv.astype(np.float64) - wv)
                 if diff.size:
                     worst = max(worst, float(diff.max()))
-                    if (diff > tol * (1 + np.abs(wv[~odd]))).any():
+                    if (diff > tol * (1 + np.abs(wv))).any():
                         bad.append(f"{where}: max |got - want| {float(diff.max())} over {tol}")
     return worst, nonfinite, bad
 
@@ -3248,8 +3289,9 @@ def tensor_parallel_phases(torch, wrappers, smi: str, cfg, work: Path) -> int:
     rank_passes = [PassRows.load(work / f"rank{r}_passes.npz") for r in range(TP_WORKERS)]
     logits_err, nonfinite = 0.0, {}
     for r, passes in enumerate(rank_passes):
-        err, nonfinite, out = check_passes(passes, one_passes, AGREE_TOL["bfloat16"])
+        err, odd, out = check_passes(passes, one_passes, AGREE_TOL["bfloat16"])
         logits_err = max(logits_err, err)
+        nonfinite.update({f"rank {r}: {k}": n for k, n in odd.items()})
         bad += [f"rank {r}: {b}" for b in out]
     # the JSON rank 0 wrote and each rank's results: 10c's F1s exactly, the
     # binned calibration fields from the run's own rows, the other numbers
@@ -3263,9 +3305,9 @@ def tensor_parallel_phases(torch, wrappers, smi: str, cfg, work: Path) -> int:
         err, out = check_results(got, one_json, passes[0], AGREE_TOL["bfloat16"])
         fields_err = max(fields_err, err)
         bad += [f"{name}: {b}" for b in out]
-    if bad:
+    if bad or nonfinite:
         raise AssertionError("12c: the two-rank battery's results differ from 10c's: "
-                             + "; ".join(bad) + f" (10c's non-finite entries: {nonfinite})")
+                             + "; ".join(bad) + f" (non-finite entries: {nonfinite})")
     # each rank's batches hold 4 of the 8 rows: the benchmark runs B 1 and 4
     rows = 8 // TP_WORKERS
     bench_sizes = len({1, min(4, rows), min(8, rows), rows})
@@ -3285,7 +3327,7 @@ def tensor_parallel_phases(torch, wrappers, smi: str, cfg, work: Path) -> int:
           "fields_tol": AGREE_TOL["bfloat16"], "fields_max_abs_diff": fields_err,
           "calibration": {"one_process": calibration_of(one_passes[0]),
                           "two_ranks": calibration_of(rank_passes[0][0])},
-          "passes_held": len(one_passes), "nonfinite_in_10c_and_here": nonfinite,
+          "passes_held": len(one_passes), "nonfinite_entries": sum(nonfinite.values()),
           "logits_tol": AGREE_TOL["bfloat16"],
           "logits_max_abs_diff": logits_err,
           "launches": {"residual_stack": [a["launches"] for a in acad]}})

@@ -222,8 +222,12 @@ class BucketedLoader:
             texts[r] = text
             example_mask[r] = 1.0
             indices[r] = idxs[r]
-        # padded rows stay valid inputs (a fully masked row would give NaN in
-        # a masked softmax): one valid audio sample and BOS/EOS text
+        # padded rows keep one valid audio sample and BOS/EOS text, as the
+        # JAX package's do. One sample gives zero frames from the conv
+        # extractor, so the row's logits are NaN. Every consumer drops the
+        # row: the eval passes after the forward, the few-shot adaptation
+        # before its training forward; training takes full batches only
+        # (drop_remainder)
         for r in range(len(loaded), B):
             audio_mask[r, 0] = 1.0
 

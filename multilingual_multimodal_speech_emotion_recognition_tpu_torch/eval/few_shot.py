@@ -19,6 +19,14 @@ immutable, which gives it the same for free). Dropout draws from a
 torch.Generator on the parameters' device seeded from `seed`. The
 adaptation forward is the training one, so the classifier takes its plain
 stack (the kernel has no backward).
+
+Padded rows are dropped before the adaptation forward, the one departure
+from the JAX package's make_adapt_step (its eval/few_shot.py:58-65, which
+weighs their CE by example_mask 0). The loader pads a partial batch with
+rows of one valid sample; the conv extractor gives such a row zero frames,
+its attention masks every key and its logits are NaN, and 0 x NaN is NaN:
+weighed in, the row turned the loss and every adapted leaf NaN. A batch
+whose rows are all real adapts as before.
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ import random
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from ..config import ModelConfig
@@ -61,12 +70,39 @@ def make_adapt_optimizer(params: dict, lr: float) -> AdamW:
                  groups={TRAIN_GROUP: (1.0, WEIGHT_DECAY)})
 
 
+def real_rows(batch: dict) -> dict:
+    """The batch's real rows: every key (all are per row) indexed with the
+    rows whose example_mask is above 0, which stays as the rows' CE
+    weights. A batch without example_mask, or with no padded row, comes
+    back as it is; one with no real row raises ValueError (the loader emits
+    none, and a step on it would be a silent zero step)."""
+    w = batch.get("example_mask")
+    if w is None:
+        return batch
+    keep = (w.detach().cpu().numpy() if isinstance(w, torch.Tensor) else np.asarray(w)) > 0
+    if not keep.any():
+        raise ValueError("few-shot adaptation: a batch with no real row (example_mask all 0)")
+    if keep.all():
+        return batch
+    rows = np.flatnonzero(keep)
+
+    def take(v):
+        if isinstance(v, torch.Tensor):
+            return v[torch.from_numpy(rows).to(v.device)]
+        return np.asarray(v)[rows]
+
+    return {k: take(v) for k, v in batch.items()}
+
+
 def adapt_loss(params: dict, model_cfg: ModelConfig, batch: dict,
                generator: torch.Generator, tp=None) -> torch.Tensor:
-    """The masked CE of one training forward (dropout from `generator`):
-    padded rows (a partial final batch) carry example_mask 0 and do not
-    enter the K-shot objective. `tp` (a parallel/tensor.ModelGroup) runs the
-    forward tensor-parallel on this rank's view of the parameters."""
+    """The CE of one training forward (dropout from `generator`) over the
+    batch's real rows (real_rows: a partial final batch's padded rows never
+    reach the forward), weighed by example_mask where the batch has one.
+    `tp` (a parallel/tensor.ModelGroup) runs the forward tensor-parallel on
+    this rank's view of the parameters; every rank gets the same batch and
+    drops the same rows."""
+    batch = real_rows(batch)
     fwd = {k: v for k, v in batch.items() if k not in ("labels", "example_mask")}
     out = mdl.model_forward(params, model_cfg, fwd, deterministic=False,
                             generator=generator, use_openmax=False, tp=tp)

@@ -305,9 +305,9 @@ class BatchingServer:
         spec = bucket.model.spec["batch_spec"]
         int16_wire = spec["audio"][1] == "int16"
         # Tail-pad rows keep ONE valid sample of silence, mirroring
-        # data/pipeline.py's padded-batch rule: a fully-masked row turns the
-        # masked softmaxes into 0/0 NaNs. The NaNs land in discarded rows
-        # today, but any batch-coupled op would spread them to real rows.
+        # data/pipeline.py's padded-batch rule. One sample gives zero frames
+        # from the conv extractor, so those rows' logits are NaN; the
+        # forward couples no rows and only the requests' rows are answered.
         if int16_wire:
             # wire-compact artifact: raw PCM + lengths, ~4x fewer bytes
             # to device; exact round-trip for b64-int16 request payloads
