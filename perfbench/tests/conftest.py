@@ -1,0 +1,10 @@
+"""The benchmark's own tests: `python -m pytest perfbench/tests -q` from the
+root of a checkout (the card's tests carry the `cuda` marker and skip
+without a card)."""
+
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+if str(ROOT) not in sys.path:
+    sys.path.insert(0, str(ROOT))
