@@ -23,6 +23,8 @@ from typing import Iterable, Iterator, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..utils import profiling
+
 _END = object()
 
 
@@ -90,7 +92,10 @@ def device_prefetch(host_batches: Iterable[dict], device: torch.device, *,
     threading.Thread(target=worker, daemon=True, name="device-prefetch").start()
     try:
         while True:
-            item = q.get()
+            profiling.count("prefetch.gets")
+            profiling.count("prefetch.ready", q.qsize())
+            with profiling.span("prefetch.wait"):
+                item = q.get()
             if item is _END:
                 if failure:
                     raise failure[0]

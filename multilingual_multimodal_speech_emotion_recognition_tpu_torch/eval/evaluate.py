@@ -47,7 +47,7 @@ from ..data.tokenizer import Tokenizer, get_tokenizer
 from ..models import model as mdl
 from ..ops import audio_dsp, openmax as om
 from ..parallel import mesh as mesh_lib, multihost as mh, tensor as tensor_lib
-from ..utils import metrics as M
+from ..utils import metrics as M, profiling
 from ..utils.runtime import params_on, resolve_device, to_device, tree_to
 
 Device = Optional[Union[str, torch.device]]
@@ -92,9 +92,10 @@ def make_eval_step(model_cfg: ModelConfig, *, use_openmax: bool = False,
 
     @torch.inference_mode()
     def step(params: dict, batch: dict):
-        params_on(params, dev)
-        out = mdl.model_forward(params, model_cfg, batch, use_openmax=use_openmax, tp=tp)
-        return out.logits, out.features, out.uncertainty
+        with profiling.span("step"):
+            params_on(params, dev)
+            out = mdl.model_forward(params, model_cfg, batch, use_openmax=use_openmax, tp=tp)
+            return out.logits, out.features, out.uncertainty
 
     return step
 
@@ -120,31 +121,33 @@ def make_tta_eval_step(cfg: Config, num_tta: int = 5, use_openmax: bool = True,
     @torch.inference_mode()
     def step(params: dict, batch: dict, generator: Optional[torch.Generator] = None,
              noise: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
-        params_on(params, dev)
-        batch = _batch_on(batch, dev)
-        V = num_tta
-        B = batch["audio"].shape[0]
-        tile = lambda x: torch.cat([x] * V, dim=0)
-        p = mdl.encoder_params(params, mcfg)
+        with profiling.span("step"):
+            params_on(params, dev)
+            batch = _batch_on(batch, dev)
+            V = num_tta
+            B = batch["audio"].shape[0]
+            tile = lambda x: torch.cat([x] * V, dim=0)
+            p = mdl.encoder_params(params, mcfg)
 
-        wave, mask = audio_dsp.tta_expand(
-            batch["audio"], batch["audio_mask"], num_tta=V,
-            sample_rate=cfg.data.sample_rate, generator=generator,
-            noise=None if noise is None else [to_device(n, dev) for n in noise])
-        fbatch = {"audio": wave, "audio_mask": mask}
-        for k in ("quality_feats", "cond_feats", "lid_entropy", "lid_conf"):
-            if k in batch:
-                fbatch[k] = tile(batch[k])
-        wave, quality_feats, cond_feats = mdl.frontend_features(mcfg, fbatch)
+            with profiling.span("tta_expand"):
+                wave, mask = audio_dsp.tta_expand(
+                    batch["audio"], batch["audio_mask"], num_tta=V,
+                    sample_rate=cfg.data.sample_rate, generator=generator,
+                    noise=None if noise is None else [to_device(n, dev) for n in noise])
+            fbatch = {"audio": wave, "audio_mask": mask}
+            for k in ("quality_feats", "cond_feats", "lid_entropy", "lid_conf"):
+                if k in batch:
+                    fbatch[k] = tile(batch[k])
+            wave, quality_feats, cond_feats = mdl.frontend_features(mcfg, fbatch)
 
-        a_seq, a_mask = mdl.encode_audio(p, mcfg, wave.to(dtype), mask,
-                                         quality_feats=quality_feats,
-                                         cond_feats=cond_feats, tp=tp)
-        t_seq, t_mask = mdl.encode_text(p, mcfg, batch["text_ids"], batch["text_mask"],
-                                        asr_feats=batch.get("asr_feats"), tp=tp)
-        out = mdl.model_heads(params, mcfg, a_seq, a_mask, tile(t_seq), tile(t_mask),
-                              use_openmax=use_openmax, tp=tp)
-        return out.logits.reshape(V, B, -1).mean(dim=0)
+            a_seq, a_mask = mdl.encode_audio(p, mcfg, wave.to(dtype), mask,
+                                             quality_feats=quality_feats,
+                                             cond_feats=cond_feats, tp=tp)
+            t_seq, t_mask = mdl.encode_text(p, mcfg, batch["text_ids"], batch["text_mask"],
+                                            asr_feats=batch.get("asr_feats"), tp=tp)
+            out = mdl.model_heads(params, mcfg, a_seq, a_mask, tile(t_seq), tile(t_mask),
+                                  use_openmax=use_openmax, tp=tp)
+            return out.logits.reshape(V, B, -1).mean(dim=0)
 
     return step
 

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import profiling
 from . import asr, conditioning, lid, quality_gates, spectral
 from .asr import ASRResult, EnhancedASRIntegration, create_enhanced_asr
 from .conditioning import (NOISE_TYPES, ConditioningStats, condition_audio,
@@ -40,12 +41,14 @@ def frontend_process(wave: torch.Tensor, mask: torch.Tensor, *,
     c_feats = wave.new_zeros((B, 12))
     stats = {}
     if use_gates:
-        wave, q = run_quality_gates(wave, mask, lid_entropy=lid_entropy,
-                                    lid_confidence=lid_confidence,
-                                    sample_rate=sample_rate,
-                                    zero_non_accept=zero_non_accept)
+        with profiling.span("dsp.gates"):
+            wave, q = run_quality_gates(wave, mask, lid_entropy=lid_entropy,
+                                        lid_confidence=lid_confidence,
+                                        sample_rate=sample_rate,
+                                        zero_non_accept=zero_non_accept)
         q_feats, stats["quality"] = q.features, q
     if use_conditioning:
-        wave, c = condition_audio(wave, mask, sample_rate=sample_rate)
+        with profiling.span("dsp.conditioning"):
+            wave, c = condition_audio(wave, mask, sample_rate=sample_rate)
         c_feats, stats["conditioning"] = c.features, c
     return wave, q_feats, c_feats, stats

@@ -25,6 +25,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ..utils import profiling
 from ..utils.runtime import export_safe_cache
 from . import spectral as sp
 
@@ -65,10 +66,21 @@ class ConditioningStats(NamedTuple):
     features: Tensor           # [B, 12] raw (pre-projection) feature vector
 
 
-def gated(pred: Tensor, run, skip, operands: tuple):
+def read_gate(pred: Tensor, name: str) -> bool:
+    """The 0-d bool `pred` read back from the device: a gate's one host
+    read, in the span "sync.dsp_<name>", counted in the counters
+    "dsp.<name>.reads" and, where it holds, "dsp.<name>.taken"."""
+    with profiling.span(f"sync.dsp_{name}"):
+        taken = bool(pred)
+    profiling.count(f"dsp.{name}.reads")
+    profiling.count(f"dsp.{name}.taken", int(taken))
+    return taken
+
+
+def gated(pred: Tensor, run, skip, operands: tuple, *, name: str):
     """run(*operands) if the 0-d bool `pred` holds, else skip(*operands).
-    Eagerly a Python `if` on `pred` read back from the device (one host
-    read); while torch.export traces, `torch.cond` (JAX's `lax.cond`),
+    Eagerly a Python `if` on `pred` read back from the device
+    (`read_gate`); while torch.export traces, `torch.cond` (JAX's `lax.cond`),
     whose branches take every tensor they read as an operand and may not
     return one (torch 2.11 refuses the aliasing): a branch's output that is
     an operand is cloned there."""
@@ -81,7 +93,7 @@ def gated(pred: Tensor, run, skip, operands: tuple):
                 return outs if isinstance(out, tuple) else outs[0]
             return call
         return torch.cond(pred, fresh(run), fresh(skip), operands)
-    return run(*operands) if bool(pred) else skip(*operands)
+    return run(*operands) if read_gate(pred, name) else skip(*operands)
 
 
 def _zero_phase_apply(wave: Tensor, mag_sq_response: Tensor) -> Tensor:
@@ -305,7 +317,8 @@ def dereverb(wave: Tensor, mask: Tensor, t60: Tensor, *,
         gain = torch.sqrt(psd_clean / (psd + 1e-10)).clamp(0.1, 1.0)
         return torch.where(apply[:, None], wave * gain.mean(-1)[:, None], wave)
 
-    out = gated(apply.any(), run, lambda wave, mask, apply: wave, (wave, mask, apply))
+    out = gated(apply.any(), run, lambda wave, mask, apply: wave, (wave, mask, apply),
+                name="dereverb")
     orig_e = sp.masked_mean(wave ** 2, mask)
     new_e = sp.masked_mean(out ** 2, mask)
     gain_db = torch.where(apply & (new_e > 0),
@@ -370,7 +383,8 @@ def condition_audio(wave: Tensor, mask: Tensor, *,
         return _zero_phase_apply(wave, resp) * mask
 
     x = gated(hum_filtered.any() | should_hpf.any(), notch_hpf,          # host read 1
-              lambda wave, *_: wave, (wave, mask, hum_flags, should_hpf, cutoff))
+              lambda wave, *_: wave, (wave, mask, hum_flags, should_hpf, cutoff),
+              name="notch_hpf")
     x = x * mask
     cutoff_feat = torch.where(should_hpf, cutoff, 0.0)
 
@@ -389,7 +403,7 @@ def condition_audio(wave: Tensor, mask: Tensor, *,
     # x unchanged, and so its SNR, where no row is denoised
     x, snr_after = gated(need_denoise.any(), denoise,                   # host read 2
                          lambda x, mask, need_denoise, snr_before: (x, snr_before),
-                         (x, mask, need_denoise, snr_before))
+                         (x, mask, need_denoise, snr_before), name="denoise")
     orig_e = sp.masked_mean(wave ** 2, mask)
     new_e = sp.masked_mean(x ** 2, mask)
     denoise_gain = torch.where(

@@ -25,6 +25,7 @@ import torch
 
 from ..ops import openmax as openmax_ops
 from ..ops import residual_stack as rs
+from ..utils import profiling
 from . import layers
 
 Tensor = torch.Tensor
@@ -125,22 +126,23 @@ def classifier_forward(params: dict, x: Tensor, *, use_openmax: bool = False,
                        generator: Optional[torch.Generator] = None,
                        deterministic: bool = True) -> ClassifierOutput:
     """Full classifier head; `use_openmax` applies the Weibull adjustment."""
-    feats = classifier_features(params, x, dropout_rate=dropout_rate,
-                                generator=generator, deterministic=deterministic)
-    sims, anchor_loss = anchor_clustering(params["anchor"], feats,
-                                          dropout_rate=anchor_dropout,
-                                          generator=generator,
-                                          deterministic=deterministic)
-    logits = layers.linear(params["out_proj2"], feats)
-    u = torch.relu(layers.linear(params["uncertainty"]["lin1"], feats))
-    u = layers.dropout(generator, u, dropout_rate, deterministic)
-    u = torch.sigmoid(layers.linear(params["uncertainty"]["lin2"], u))
-    if use_openmax:
-        logits = openmax_ops.openmax_adjust(params["weibull"], feats.float(),
-                                            logits)
-    return ClassifierOutput(logits=logits, features=feats,
-                            anchor_similarities=sims, anchor_loss=anchor_loss,
-                            uncertainty=u)
+    with profiling.span("classifier"):
+        feats = classifier_features(params, x, dropout_rate=dropout_rate,
+                                    generator=generator, deterministic=deterministic)
+        sims, anchor_loss = anchor_clustering(params["anchor"], feats,
+                                              dropout_rate=anchor_dropout,
+                                              generator=generator,
+                                              deterministic=deterministic)
+        logits = layers.linear(params["out_proj2"], feats)
+        u = torch.relu(layers.linear(params["uncertainty"]["lin1"], feats))
+        u = layers.dropout(generator, u, dropout_rate, deterministic)
+        u = torch.sigmoid(layers.linear(params["uncertainty"]["lin2"], u))
+        if use_openmax:
+            logits = openmax_ops.openmax_adjust(params["weibull"], feats.float(),
+                                                logits)
+        return ClassifierOutput(logits=logits, features=feats,
+                                anchor_similarities=sims, anchor_loss=anchor_loss,
+                                uncertainty=u)
 
 
 # ---------------------------------------------------------------------------

@@ -32,6 +32,7 @@ import torch
 from ..config import ModelConfig
 from ..frontend import frontend_process
 from ..ops import pooling as pooling_ops
+from ..utils import profiling
 from ..utils.runtime import leaves_with_paths, resolve_device, to_device, tree_to
 from . import classifier as clf
 from . import cross_attention as cma
@@ -126,9 +127,10 @@ def _compute_dtype(cfg: ModelConfig) -> torch.dtype:
 def encoder_params(params: dict, cfg: ModelConfig) -> dict:
     """The compute-dtype copy of what encode_audio / encode_text read (the
     heads cast their own; the classifier stays f32)."""
-    dtype = _compute_dtype(cfg)
-    return {k: cast_floating(v, dtype) for k, v in params.items()
-            if k not in _UNCAST_KEYS}
+    with profiling.span("param_cast"):
+        dtype = _compute_dtype(cfg)
+        return {k: cast_floating(v, dtype) for k, v in params.items()
+                if k not in _UNCAST_KEYS}
 
 
 def _adapter(p: dict, x: Tensor) -> Tensor:
@@ -174,32 +176,33 @@ def encode_audio(params: dict, cfg: ModelConfig, wave: Tensor, wave_mask: Tensor
                  spec_augment: bool = False, tp=None):
     """[B, T] waveform -> ([B, T', ah] sequence, [B, T'] frame mask); the
     backbone tensor-parallel under `tp` (a parallel/tensor.ModelGroup)."""
-    with _frozen(params["audio_backbone"]):
-        seq, frame_mask = w2v.wav2vec2_encode(
-            params["audio_backbone"], cfg.audio, wave, wave_mask,
-            deterministic=deterministic, generator=generator,
-            spec_augment=spec_augment, remat=cfg.remat_encoders, tp=tp)
-    seq = _adapter(params["audio_adapter"], seq)
-    drop = (generator, deterministic)
-    uq, uc = cfg.use_quality_gates, cfg.use_audio_conditioning
-    if uq or uc:
-        B = seq.shape[0]
-        q = quality_feats if quality_feats is not None else seq.new_zeros((B, 8))
-        c = cond_feats if cond_feats is not None else seq.new_zeros((B, 12))
-        if uq:
-            q = _feature_proj(params["quality_proj"], q.to(seq.dtype), *drop)
-        if uc:
-            c = _feature_proj(params["cond_proj"], c.to(seq.dtype), *drop)
-        if uq and uc:
-            seq = _feature_fuse(params["combined_fusion"], seq, torch.cat([q, c], -1), *drop)
-        elif uq:
-            seq = _feature_fuse(params["quality_fusion"], seq, q, *drop)
-        else:
-            seq = _feature_fuse(params["conditioning_fusion"], seq, c, *drop)
-    if cfg.pad_frames_valid:
-        seq = seq * frame_mask[..., None].to(seq.dtype)
-        frame_mask = torch.ones_like(frame_mask)
-    return seq, frame_mask
+    with profiling.span("audio_encoder"):
+        with _frozen(params["audio_backbone"]):
+            seq, frame_mask = w2v.wav2vec2_encode(
+                params["audio_backbone"], cfg.audio, wave, wave_mask,
+                deterministic=deterministic, generator=generator,
+                spec_augment=spec_augment, remat=cfg.remat_encoders, tp=tp)
+        seq = _adapter(params["audio_adapter"], seq)
+        drop = (generator, deterministic)
+        uq, uc = cfg.use_quality_gates, cfg.use_audio_conditioning
+        if uq or uc:
+            B = seq.shape[0]
+            q = quality_feats if quality_feats is not None else seq.new_zeros((B, 8))
+            c = cond_feats if cond_feats is not None else seq.new_zeros((B, 12))
+            if uq:
+                q = _feature_proj(params["quality_proj"], q.to(seq.dtype), *drop)
+            if uc:
+                c = _feature_proj(params["cond_proj"], c.to(seq.dtype), *drop)
+            if uq and uc:
+                seq = _feature_fuse(params["combined_fusion"], seq, torch.cat([q, c], -1), *drop)
+            elif uq:
+                seq = _feature_fuse(params["quality_fusion"], seq, q, *drop)
+            else:
+                seq = _feature_fuse(params["conditioning_fusion"], seq, c, *drop)
+        if cfg.pad_frames_valid:
+            seq = seq * frame_mask[..., None].to(seq.dtype)
+            frame_mask = torch.ones_like(frame_mask)
+        return seq, frame_mask
 
 
 def encode_text(params: dict, cfg: ModelConfig, input_ids: Tensor,
@@ -208,16 +211,17 @@ def encode_text(params: dict, cfg: ModelConfig, input_ids: Tensor,
                 generator: Optional[torch.Generator] = None, tp=None):
     """[B, S] token ids -> ([B, S, th] sequence, [B, S] mask); the backbone
     tensor-parallel under `tp` (a parallel/tensor.ModelGroup)."""
-    with _frozen(params["text_backbone"]):
-        seq = xlmr_mod.xlmr_encode(params["text_backbone"], cfg.text, input_ids,
-                                   text_mask, deterministic=deterministic,
-                                   generator=generator, remat=cfg.remat_encoders, tp=tp)
-    seq = _adapter(params["text_adapter"], seq)
-    if cfg.use_asr and asr_feats is not None:
-        drop = (generator, deterministic)
-        asr_p = _feature_proj(params["asr_proj"], asr_feats.to(seq.dtype), *drop)
-        seq = _feature_fuse(params["asr_fusion"], seq, asr_p, *drop)
-    return seq, text_mask
+    with profiling.span("text_encoder"):
+        with _frozen(params["text_backbone"]):
+            seq = xlmr_mod.xlmr_encode(params["text_backbone"], cfg.text, input_ids,
+                                       text_mask, deterministic=deterministic,
+                                       generator=generator, remat=cfg.remat_encoders, tp=tp)
+        seq = _adapter(params["text_adapter"], seq)
+        if cfg.use_asr and asr_feats is not None:
+            drop = (generator, deterministic)
+            asr_p = _feature_proj(params["asr_proj"], asr_feats.to(seq.dtype), *drop)
+            seq = _feature_fuse(params["asr_fusion"], seq, asr_p, *drop)
+        return seq, text_mask
 
 
 def frontend_features(cfg: ModelConfig, batch: dict):
@@ -235,12 +239,13 @@ def frontend_features(cfg: ModelConfig, batch: dict):
         # without text, LID gives entropy 1.0 and confidence 0
         ent = batch.get("lid_entropy", torch.ones(B, device=wave.device))
         conf = batch.get("lid_conf", torch.zeros(B, device=wave.device))
-        wave, quality_feats, cond_feats, _ = frontend_process(
-            wave.float(), batch["audio_mask"].float(),
-            lid_entropy=ent, lid_confidence=conf,
-            use_gates=cfg.use_quality_gates,
-            use_conditioning=cfg.use_audio_conditioning,
-            zero_non_accept=cfg.zero_non_accept)
+        with profiling.span("frontend"):
+            wave, quality_feats, cond_feats, _ = frontend_process(
+                wave.float(), batch["audio_mask"].float(),
+                lid_entropy=ent, lid_confidence=conf,
+                use_gates=cfg.use_quality_gates,
+                use_conditioning=cfg.use_audio_conditioning,
+                zero_non_accept=cfg.zero_non_accept)
     return wave, quality_feats, cond_feats
 
 
@@ -252,27 +257,28 @@ def model_heads(params: dict, cfg: ModelConfig, a_seq: Tensor, a_mask: Tensor,
     from encoded sequences; `params` is the raw (uncast) tree. Under `tp`
     (a parallel/tensor.ModelGroup) the cross-modal attention runs this
     rank's heads; pooling, fusion and the classifier are replicated."""
-    dtype = _compute_dtype(cfg)
-    p = {k: cast_floating(params[k], dtype) for k in _HEAD_KEYS}
-    a_enh, t_enh = cma.cross_modal_attention(
-        p["cross"], a_seq, t_seq, a_mask, t_mask, num_heads=cfg.num_heads,
-        dropout_rate=cfg.cross_dropout, generator=generator, deterministic=deterministic,
-        tp=tp)
-    a_vec = pooling_ops.attentive_stats_pooling(p["pool_a"], a_enh, a_mask)
-    t_vec = pooling_ops.attentive_stats_pooling(p["pool_t"], t_enh, t_mask)
-    fused = fusion_mod.fusion(p["fusion"], a_vec, t_vec, dropout_rate=cfg.fusion_dropout,
-                              generator=generator, deterministic=deterministic)
-    # the classifier stays f32 on the raw parameters
-    out = clf.classifier_forward(params["classifier"], fused.float(),
-                                 use_openmax=use_openmax,
-                                 dropout_rate=cfg.classifier_dropout,
-                                 anchor_dropout=cfg.anchor_dropout,
-                                 generator=generator, deterministic=deterministic)
-    return ModelOutput(logits=out.logits, uncertainty=out.uncertainty,
-                       anchor_loss=out.anchor_loss,
-                       anchor_similarities=out.anchor_similarities,
-                       features=out.features, fused=fused.float(),
-                       audio_vec=a_vec, text_vec=t_vec)
+    with profiling.span("heads"):
+        dtype = _compute_dtype(cfg)
+        p = {k: cast_floating(params[k], dtype) for k in _HEAD_KEYS}
+        a_enh, t_enh = cma.cross_modal_attention(
+            p["cross"], a_seq, t_seq, a_mask, t_mask, num_heads=cfg.num_heads,
+            dropout_rate=cfg.cross_dropout, generator=generator, deterministic=deterministic,
+            tp=tp)
+        a_vec = pooling_ops.attentive_stats_pooling(p["pool_a"], a_enh, a_mask)
+        t_vec = pooling_ops.attentive_stats_pooling(p["pool_t"], t_enh, t_mask)
+        fused = fusion_mod.fusion(p["fusion"], a_vec, t_vec, dropout_rate=cfg.fusion_dropout,
+                                  generator=generator, deterministic=deterministic)
+        # the classifier stays f32 on the raw parameters
+        out = clf.classifier_forward(params["classifier"], fused.float(),
+                                     use_openmax=use_openmax,
+                                     dropout_rate=cfg.classifier_dropout,
+                                     anchor_dropout=cfg.anchor_dropout,
+                                     generator=generator, deterministic=deterministic)
+        return ModelOutput(logits=out.logits, uncertainty=out.uncertainty,
+                           anchor_loss=out.anchor_loss,
+                           anchor_similarities=out.anchor_similarities,
+                           features=out.features, fused=fused.float(),
+                           audio_vec=a_vec, text_vec=t_vec)
 
 
 def model_forward(params: dict, cfg: ModelConfig, batch: dict, *,

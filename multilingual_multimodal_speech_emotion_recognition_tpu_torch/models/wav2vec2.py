@@ -33,6 +33,7 @@ import torch.nn.functional as F
 
 from ..config import Wav2Vec2Config
 from ..ops import conv_tail
+from ..utils import profiling
 from ..utils.runtime import export_safe_cache
 from . import layers, remat as remat_lib
 
@@ -165,37 +166,38 @@ def feature_encoder(params: dict, cfg: Wav2Vec2Config, wave: Tensor,
     geometry (`conv_tail_supported`); otherwise, and by default, the layers
     run one by one. Conv 0 and its norm run either way; its output is
     transposed once to the tail's [B, T1, C]."""
-    check_supported(cfg)
-    convs = params["convs"]
-    layer_mode = cfg.feat_extract_norm == "layer"
-    eps = cfg.layer_norm_eps
+    with profiling.span("audio_encoder.conv"):
+        check_supported(cfg)
+        convs = params["convs"]
+        layer_mode = cfg.feat_extract_norm == "layer"
+        eps = cfg.layer_norm_eps
 
-    def norm_gelu(conv: dict, x: Tensor) -> Tensor:
-        return layers.gelu(channel_layer_norm(conv["ln"], x, eps) if layer_mode else x)
+        def norm_gelu(conv: dict, x: Tensor) -> Tensor:
+            return layers.gelu(channel_layer_norm(conv["ln"], x, eps) if layer_mode else x)
 
-    use_fused = (allow_fused and wave.dtype == torch.bfloat16
-                 and conv_tail.conv_tail_supported(cfg.conv_kernel, cfg.conv_stride,
-                                                   cfg.conv_dim))
-    x = _conv1d(convs[0], wave[:, None, :], cfg.conv_stride[0])
-    lengths = sample_mask.to(torch.int32).sum(-1)
-    lengths = (lengths - cfg.conv_kernel[0]) // cfg.conv_stride[0] + 1
-    if layer_mode:
-        x = norm_gelu(convs[0], x)
-    else:
-        fm = torch.arange(x.shape[-1], device=x.device)[None, :] < lengths[:, None]
-        x = layers.gelu(masked_group_norm_per_channel(params["group_norm"], x, fm))
-    if use_fused:
-        x = conv_tail.conv_tail(convs, x.transpose(1, 2).contiguous(), has_ln=layer_mode,
-                                ln_eps=eps)
-    else:
-        for conv, stride in zip(convs[1:], cfg.conv_stride[1:]):
-            x = norm_gelu(conv, _conv1d(conv, x, stride))
-        x = x.transpose(1, 2)
-    for kernel, stride in zip(cfg.conv_kernel[1:], cfg.conv_stride[1:]):
-        lengths = (lengths - kernel) // stride + 1
-    frame_mask = (torch.arange(x.shape[1], device=x.device)[None, :]
-                  < lengths[:, None]).to(x.dtype)
-    return x, frame_mask
+        use_fused = (allow_fused and wave.dtype == torch.bfloat16
+                     and conv_tail.conv_tail_supported(cfg.conv_kernel, cfg.conv_stride,
+                                                       cfg.conv_dim))
+        x = _conv1d(convs[0], wave[:, None, :], cfg.conv_stride[0])
+        lengths = sample_mask.to(torch.int32).sum(-1)
+        lengths = (lengths - cfg.conv_kernel[0]) // cfg.conv_stride[0] + 1
+        if layer_mode:
+            x = norm_gelu(convs[0], x)
+        else:
+            fm = torch.arange(x.shape[-1], device=x.device)[None, :] < lengths[:, None]
+            x = layers.gelu(masked_group_norm_per_channel(params["group_norm"], x, fm))
+        if use_fused:
+            x = conv_tail.conv_tail(convs, x.transpose(1, 2).contiguous(), has_ln=layer_mode,
+                                    ln_eps=eps)
+        else:
+            for conv, stride in zip(convs[1:], cfg.conv_stride[1:]):
+                x = norm_gelu(conv, _conv1d(conv, x, stride))
+            x = x.transpose(1, 2)
+        for kernel, stride in zip(cfg.conv_kernel[1:], cfg.conv_stride[1:]):
+            lengths = (lengths - kernel) // stride + 1
+        frame_mask = (torch.arange(x.shape[1], device=x.device)[None, :]
+                      < lengths[:, None]).to(x.dtype)
+        return x, frame_mask
 
 
 def _spec_augment(generator: torch.Generator, cfg: Wav2Vec2Config, hidden: Tensor,
@@ -238,11 +240,19 @@ def _bucket_table(T: int, num_buckets: int, max_distance: int) -> Tensor:
     return _relative_positions_bucket(pos[None, :] - pos[:, None], num_buckets, max_distance)
 
 
+def device_bucket_table(T: int, cfg: Wav2Vec2Config, device) -> Tensor:
+    """`_bucket_table` on `device`: a copy from pageable host memory, so a
+    host sync on the card, in the span "sync.wavlm_bucket_table"."""
+    table = _bucket_table(T, cfg.num_buckets, cfg.max_bucket_distance)
+    with profiling.span("sync.wavlm_bucket_table"):
+        return table.to(device)
+
+
 def relative_position_bias(params: dict, cfg: Wav2Vec2Config, T: int) -> Tensor:
     """Ungated bias [H, T, T] in f32 (HF WavLMAttention.compute_bias), from
     `rel_attn_embed`, computed once and shared down the stack."""
     embed = params["rel_attn_embed"]
-    bucket = _bucket_table(T, cfg.num_buckets, cfg.max_bucket_distance).to(embed.device)
+    bucket = device_bucket_table(T, cfg, embed.device)
     return embed.float()[bucket].permute(2, 0, 1)
 
 

@@ -5,11 +5,22 @@ utils/profiling.py: a profiler trace (torch.profiler over the CPU and, where
 there is one, the card, written as a Chrome trace that Perfetto reads), a
 device sync, a step timer with the JAX package's percentile report and a
 throughput meter, and the card's memory counters under JAX's key names.
+
+Beside them, the program's own spans and counters, off unless switched on
+(`tracing()`, or `trace()` for its duration): `span(name)` is a
+`record_function` range "ser.<name>" at a layer boundary, so a profiler
+trace shows the program's layers on the kernels' timeline; `count(name, n)`
+adds to a named counter; `counters()` snapshots them beside the kernels'
+launch counts. Off, a span is one shared no-op context and a count returns
+at once: no device operation, host read or allocation. While torch.compile
+or torch.export traces, spans are no-ops too, so exported programs are the
+same either way.
 """
 
 from __future__ import annotations
 
 import contextlib
+import threading
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
@@ -21,20 +32,76 @@ import torch
 from .runtime import leaves_with_paths, resolve_device
 
 TRACE_FILE = "trace.json"
+SPAN_PREFIX = "ser."
+
+
+class _Tracing:
+    """Whether spans and counts record, and the named counters."""
+
+    def __init__(self):
+        self.on = False
+        self.counts: Dict[str, int] = {}
+        self.lock = threading.Lock()
+
+
+_TRACING = _Tracing()
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str) -> contextlib.AbstractContextManager:
+    """A "ser.<name>" range around the program's work while tracing is on;
+    otherwise, and while torch.compile or torch.export traces, one shared
+    no-op context."""
+    if not _TRACING.on or torch.compiler.is_compiling():   # torch.export's tracing too
+        return _NO_SPAN
+    return torch.profiler.record_function(SPAN_PREFIX + name)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add n to the counter `name` while tracing is on."""
+    if not _TRACING.on:
+        return
+    with _TRACING.lock:
+        _TRACING.counts[name] = _TRACING.counts.get(name, 0) + n
+
+
+@contextlib.contextmanager
+def tracing():
+    """Spans and counts on inside the block; the previous state after it."""
+    before = _TRACING.on
+    _TRACING.on = True
+    try:
+        yield
+    finally:
+        _TRACING.on = before
+
+
+def counters() -> Dict[str, int]:
+    """A snapshot of the named counters and the hand-written kernels'
+    `.launches`, by name; callers take the difference of two."""
+    # imported here: the kernels' modules import the models, which import this one
+    from ..ops import attentive_pooling, conv_tail, flash_attention, quant, residual_stack
+    with _TRACING.lock:
+        snap = dict(_TRACING.counts)
+    for fn in (residual_stack.residual_stack, attentive_pooling.attentive_stats_pooling,
+               flash_attention.flash_attention, conv_tail.conv_tail, quant.int8_matmul):
+        snap[f"{fn.__name__}.launches"] = fn.launches
+    return snap
 
 
 @contextlib.contextmanager
 def trace(log_dir: Union[str, Path]):
     """torch.profiler.profile over the CPU and CUDA (CUDA where a card is
-    present); on exit the Chrome trace goes to log_dir/trace.json. Yields
-    the profiler, whose `key_averages()` sums the events by name."""
+    present), with the program's spans on; on exit the Chrome trace goes to
+    log_dir/trace.json. Yields the profiler, whose `key_averages()` sums the
+    events by name."""
     from torch.profiler import ProfilerActivity, profile
     log_dir = Path(log_dir)
     log_dir.mkdir(parents=True, exist_ok=True)
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
+    with tracing(), profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(str(log_dir / TRACE_FILE))
 

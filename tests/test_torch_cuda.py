@@ -589,6 +589,38 @@ def test_tta_step_on_the_card_matches_the_cpu(cuda, dtype, tol):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("preset,reads", [(None, 3), ("wavlm-large", 4)])
+def test_every_host_read_of_a_dsp_forward_is_in_a_sync_span(cuda, preset, reads):
+    """The eval step with the front-end DSP on reads the card back as many
+    times as it opens `ser.sync.*` spans (utils/profiling): the DSP's three
+    gates, and WavLM's bucket table copied from pageable memory."""
+    import dataclasses
+
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.eval import (
+        evaluate as ev)
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.models import (
+        model as tm)
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.utils import profiling
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.utils.runtime import (
+        tree_to)
+    cfg = (_tiny_eval_config().model if preset is None
+           else dataclasses.replace(_tiny_large(preset)[0], frontend_dsp=True))
+    wave, mask = _dsp_batch()
+    rng = np.random.default_rng(0)
+    batch = tree_to({"audio": wave, "audio_mask": mask,
+                     "text_ids": torch.from_numpy(rng.integers(2, 100, (4, 10)).astype(np.int32)),
+                     "text_mask": torch.ones(4, 10)}, cuda)
+    params = tree_to(tm.init_model(cfg, torch.Generator().manual_seed(0), "cpu"), cuda)
+    step = ev.make_eval_step(cfg, device=cuda)
+    step(params, batch)
+    with profiling.tracing(), torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        syncs = _host_reads(lambda: step(params, batch))
+    spans = [e.name for e in prof.events() if e.name.startswith("ser.sync.")]
+    assert syncs == len(spans) == reads, spans
+
+
+@pytest.mark.cuda
 def test_prefetch_copies_without_host_reads(cuda):
     """The prefetch's pinned copies on its side stream read nothing back,
     and the consumer sees every batch's values."""
