@@ -13,7 +13,11 @@ Phases, one JSON line each:
               A1's and A2's plans and their repeats held bitwise equal,
               A2 also timed alone after a write that flushes the L2,
               and a library call's time where one PyTorch call (SDPA) or
-              the port's cuDNN layers compute the same function
+              the port's cuDNN layers compute the same function; the
+              group-mode extractor's two kernels (the front, conv 0 + its
+              masked group norm + GELU, and A4) at the benchmark's three
+              bucket shapes, each against its plain version and the
+              unfused cuDNN chain, and the whole extractor on both routes
   4. agree    a small model on the card against the same model on the CPU,
               with precomputed front-end features and, on 1 s worst-case /
               speech-like / padded rows, with the front-end DSP (gate
@@ -34,7 +38,7 @@ Phases, one JSON line each:
                 debug mode) and A1's launches;
               - `feature_encoder(allow_fused=True)` at wav2vec2-base width,
                 4 s clips, B=4 and B=128, bf16, against the unfused
-                extractor (kernel A4);
+                extractor (the front kernel and A4);
               - `flash_attention` at the attention sites of the flagship's
                 shapes (kernel A3) and `attentive_stats_pooling` at its
                 pooling sites (kernel A2), B=4 and B=128: the JAX package
@@ -233,6 +237,7 @@ exits 1 before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import shutil
 import subprocess
@@ -268,7 +273,10 @@ POOLING_SITES = {"pool_a": (199, 768), "pool_t": (TEXT_TOKENS, 768)}  # (S, D)
 POOL_HIDDEN = 128
 L2_FLUSH_BYTES = 128 * 2 ** 20   # written before each flushed launch; the L2 holds 50 MB
 SPIN_CYCLES = 2_000_000          # about 1 ms of the H100's clock: the host gets ahead
-KERNEL_NAMES = ("residual_stack", "conv_tail", "flash_attention", "attentive_pooling")
+KERNEL_NAMES = ("residual_stack", "conv_front", "conv_tail", "flash_attention",
+                "attentive_pooling")
+EXTRACTOR_BUCKETS = ((512, 2), (256, 4), (128, 8))   # the benchmark's (clips, seconds) a batch
+FRONT_FLIP_SHARE = 1e-3   # the front's outputs a bf16 step off the plain version's: sum order
 TRAIN_TOL = 1e-4     # card vs CPU train step, f32, TF32 off: summation order only
 TRAIN_LR = 1e-3
 TRAIN_B = 16         # the flagship train step's batch
@@ -549,6 +557,141 @@ def conv_tail_bound(B: int, T1: int, C: int, dtype):
     flops = sum(2 * B * t * K * C * C for t, K in zip(lengths, ct.TAIL_KERNELS))
     nbytes = size * (B * T1 * C + sum(ct.TAIL_KERNELS) * C * C + B * lengths[-1] * C)
     return bound(nbytes, flops / product_rate(dtype)), flops
+
+
+def front_inputs(torch, B: int, seconds: int, C: int, seed: int):
+    """wav2vec2-base's extractor at width C (He-scaled bf16 kernels, a
+    perturbed group norm) and B normalised bf16 clips in a `seconds`
+    bucket with ragged lengths: row 0 at the bucket's full length, row 1
+    shorter than conv 0's kernel, the rest uniform in a quarter to all
+    of it."""
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.models import (
+        wav2vec2 as w2v)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rnd = lambda *s: torch.randn(*s, device="cuda", generator=g)
+    convs, c_in = [], 1
+    for K in (10, 3, 3, 3, 3, 2, 2):
+        convs.append({"kernel": (rnd(C, c_in, K) * (2.0 / (K * c_in)) ** 0.5).bfloat16()})
+        c_in = C
+    params = {"convs": convs, "group_norm": {"scale": 1 + 0.1 * rnd(C), "bias": 0.1 * rnd(C)}}
+    T = seconds * SAMPLE_RATE
+    samples = torch.randint(T // 4, T + 1, (B,), device="cuda", generator=g)
+    samples[:2] = torch.tensor([T, 7], device="cuda")
+    mask = (torch.arange(T, device="cuda")[None, :] < samples[:, None]).float()
+    wave = w2v.normalize_waveform(rnd(B, T), mask).bfloat16()
+    return params, wave, mask, samples
+
+
+def conv_front_bound(B: int, T: int, C: int):
+    """The waveform read once and the bf16 output written once, against
+    conv 0's products once on the f32 CUDA cores."""
+    T1 = (T - 10) // 5 + 1
+    nbytes = 2 * B * T + 2 * B * T1 * C + 2 * 10 * C + 4 * 2 * C
+    return bound(nbytes, 2 * 10 * B * T1 * C / H100_F32_FLOPS)
+
+
+@contextlib.contextmanager
+def unfused_extractor(w2v):
+    """feature_encoder's group-mode route off: conv 0 and its f32 group
+    norm unfused, as the port ran them before the front kernel."""
+    route = w2v.front_route
+    w2v.front_route = lambda *a: False
+    try:
+        yield
+    finally:
+        w2v.front_route = route
+
+
+def extractor_phase(torch) -> dict:
+    """Phase 3 for the group-mode extractor: the front kernel and A4 at the
+    benchmark's bucket shapes (EXTRACTOR_BUCKETS, wav2vec2-base width),
+    each against its plain version, with the front's share of outputs
+    whose bf16 rounding flipped; times against their bounds, the unfused
+    cuDNN chain and cuDNN's layers 1-6; the whole extractor on the two
+    kernels against the unfused route. The tail and the whole extractor
+    are compared on the rows with two valid frames or more: a row with
+    none or one has no variance, so its group norm scales conv 0 by
+    rsqrt(eps), about 316, and the tail's bf16 sums in another order
+    then differ by more than a bound set for O(1) activations (A4 and
+    cuDNN still agree there; the plain matmul does not)."""
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.models import (
+        layers, wav2vec2 as w2v)
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.ops import (
+        conv_front as cf, conv_tail as ct)
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.config import (
+        Wav2Vec2Config)
+    C = 512
+    cfg = Wav2Vec2Config(conv_dim=(C,) * 7)
+    tol = BF16_TOL["conv_tail"]
+    out = {}
+    for B, seconds in EXTRACTOR_BUCKETS:
+        params, wave, mask, samples = front_inputs(torch, B, seconds, C, seed=B)
+        conv0, gn = params["convs"][0], params["group_norm"]
+        T = seconds * SAMPLE_RATE
+        with torch.no_grad():
+            before = (cf.conv_front.launches, ct.conv_tail.launches)
+            x1 = cf.conv_front(conv0, gn, wave, samples, 5)
+            x7 = ct.conv_tail(params["convs"], x1, has_ln=False)
+            torch.cuda.synchronize()
+            if (cf.conv_front.launches, ct.conv_tail.launches) != (before[0] + 1,
+                                                                   before[1] + 1):
+                raise AssertionError(f"extractor B={B}: one launch of each kernel expected")
+            front_err, flipped = 0.0, 0
+            for rows in torch.arange(B, device="cuda").split(32):
+                want = cf.conv_front_plain(conv0, gn, wave[rows], samples[rows], 5)
+                front_err = max(front_err, check_close(f"conv_front B={B}", x1[rows], want, tol))
+                flipped += int((x1[rows] != want).sum())
+                del want
+            usual = (samples - 10) // 5 + 1 >= 2
+            tail_err = check_close(f"conv_tail B={B}", x7[usual],
+                                   ct.conv_tail_plain(params["convs"], x1[usual], has_ln=False),
+                                   tol)
+            x_cf = x1.transpose(1, 2).contiguous()   # the unfused route's layout
+
+            def cudnn_layers():
+                x = x_cf
+                for conv in params["convs"][1:]:
+                    x = layers.gelu(layers.conv1d(conv, x, 2))
+                return x
+
+            front_bound_ms, front_by = conv_front_bound(B, T, C)
+            (tail_bound_ms, tail_by), flops = conv_tail_bound(B, x1.shape[1], C, torch.bfloat16)
+            front_ms = cuda_ms(lambda: cf.conv_front(conv0, gn, wave, samples, 5), 10)
+            tail_ms = cuda_ms(lambda: ct.conv_tail(params["convs"], x1, has_ln=False), 5)
+            front = {
+                "ms": front_ms, "bound_ms": front_bound_ms, "bound_by": front_by,
+                "ms_over_bound": front_ms / front_bound_ms,
+                "plain_ms": cuda_ms(lambda: cf.conv_front_plain(conv0, gn, wave, samples, 5),
+                                    2, warmup=1),
+                "plain_then_transpose_ms": cuda_ms(
+                    lambda: cf.conv_front_plain(conv0, gn, wave, samples, 5).contiguous(),
+                    2, warmup=1),
+                "max_abs_err": front_err, "flipped_share": flipped / x1.numel()}
+            if front["flipped_share"] >= FRONT_FLIP_SHARE:
+                raise AssertionError(f"conv_front B={B}: {front['flipped_share']} of the "
+                                     f"outputs differ from the plain version's, not under "
+                                     f"{FRONT_FLIP_SHARE}: a rounding point moved")
+            tail = {"ms": tail_ms, "bound_ms": tail_bound_ms, "bound_by": tail_by,
+                    "ms_over_bound": tail_ms / tail_bound_ms, "tflop_per_s": flops / tail_ms / 1e9,
+                    "cudnn_layers_ms": cuda_ms(cudnn_layers, 5, warmup=1),
+                    "max_abs_err": tail_err}
+            del x7, x_cf
+            feats, frame_mask = w2v.feature_encoder(params, cfg, wave, mask)
+            with unfused_extractor(w2v):
+                want, want_mask = w2v.feature_encoder(params, cfg, wave, mask)
+                unfused_ms = cuda_ms(lambda: w2v.feature_encoder(params, cfg, wave, mask), 3,
+                                     warmup=1)
+            if not torch.equal(frame_mask, want_mask):
+                raise AssertionError(f"feature_encoder B={B}: frame masks differ")
+            whole = {"ms": cuda_ms(lambda: w2v.feature_encoder(params, cfg, wave, mask), 5),
+                     "unfused_ms": unfused_ms,
+                     "max_abs_err": check_close(f"feature_encoder B={B}", feats[usual],
+                                                want[usual], tol)}
+        out[f"B={B} {seconds}s"] = {"T1": x1.shape[1], "front": front, "tail": tail,
+                                    "feature_encoder": whole}
+        del params, wave, mask, samples, x1, feats, want
+        torch.cuda.empty_cache()
+    return {"C": C, "tol": tol, "buckets": out}
 
 
 def attention_inputs(torch, B: int, Sq: int, Skv: int, D: int, dtype, seed: int):
@@ -852,6 +995,8 @@ def train_phases(torch, wrappers, smi: str, cfg, small: dict, work: Path, manife
                                  f"{count['residual_stack']} times; training takes the plain stack")
         if reads != want_reads:
             raise AssertionError(f"train step ({label}): {reads} host reads, not {want_reads}")
+        # the frozen extractor records no gradient: the kernels in every step
+        expect_extractor(count, TRAIN_STEPS + 1, f"train step, frozen backbones ({label})")
         ms = 1e3 * sorted(times)[len(times) // 2]
         emit({"phase": "path", "path": f"train step, frozen backbones, {label}", "card": smi,
               "B": TRAIN_B, "seconds": 4.0, "text_tokens": TEXT_TOKENS, "augment": True,
@@ -895,6 +1040,7 @@ def train_phases(torch, wrappers, smi: str, cfg, small: dict, work: Path, manife
     if not np.isfinite(float(metrics.loss)) or not moved or count["residual_stack"]:
         raise AssertionError(f"unfrozen train steps: loss {float(metrics.loss)}, {moved} "
                              f"backbone leaves changed, launches {count}")
+    expect_extractor(count, 0, "train step, unfrozen")   # a gradient: the unfused path
     emit({"phase": "path", "path": "train step, unfrozen (phase 2), grad_accum 2, remat full",
           "card": smi, "B": TRAIN_B, "microbatch": TRAIN_B // 2, "seconds": 4.0,
           "text_tokens": TEXT_TOKENS, "steps": UNFROZEN_STEPS, "step_ms": [1e3 * t for t in times],
@@ -914,6 +1060,10 @@ def train_phases(torch, wrappers, smi: str, cfg, small: dict, work: Path, manife
         pipeline.SERDataset(manifest, DataConfig(dataset_root=datasets)), batch_size=8,
         tokenizer=tokenizer.get_tokenizer(vocab_size=cfg.text.vocab_size),
         shuffle=False).batches_per_epoch()
+    train_steps = pipeline.BucketedLoader(   # the train loop's full batches an epoch
+        pipeline.SERDataset(manifest, DataConfig(dataset_root=datasets)), batch_size=8,
+        tokenizer=tokenizer.get_tokenizer(vocab_size=cfg.text.vocab_size), shuffle=True,
+        drop_remainder=True).batches_per_epoch()
     a1 = 0
     torch.cuda.reset_peak_memory_stats()
     reset_counts(wrappers)
@@ -936,6 +1086,7 @@ def train_phases(torch, wrappers, smi: str, cfg, small: dict, work: Path, manife
         raise AssertionError(f"train CLI: residual_stack launched {count['residual_stack']} "
                              f"times, not {passes} passes x {val_steps} steps")
     a1 += count["residual_stack"]
+    expect_extractor(count, count["residual_stack"] + len(history) * train_steps, "train CLI")
     store = save_dir / "frozen_store"
     store_params = store / ckpt.PARAMS_FILE
     written = store_params.stat().st_mtime_ns
@@ -976,6 +1127,7 @@ def train_phases(torch, wrappers, smi: str, cfg, small: dict, work: Path, manife
     if store_params.stat().st_mtime_ns != written:
         raise AssertionError("resume: the frozen store was written again")
     a1 += count["residual_stack"]
+    expect_extractor(count, count["residual_stack"] + train_steps, "train CLI --resume_from")
     emit({"phase": "path", "path": "train CLI --resume_from epoch_0 (1 epoch)", "card": smi,
           "cli_s": resume_s, "epoch_s": resumed[0]["seconds"], "val_f1": resumed[0]["val_f1"],
           "straight_val_f1": history[1]["val_f1"], "train_loss": resumed[0]["train_loss"],
@@ -992,6 +1144,7 @@ def train_phases(torch, wrappers, smi: str, cfg, small: dict, work: Path, manife
         raise AssertionError(f"eval CLI on {best.name}: logits {res['logits'].shape}, "
                              f"launches {count} in {len(res['step_seconds'])} steps")
     a1 += count["residual_stack"]
+    expect_extractor(count, count["residual_stack"], "eval CLI on the trained checkpoint")
     emit({"phase": "path", "path": "eval CLI on the trained checkpoint", "card": smi,
           "checkpoint": best.name, "cli_s": eval_s, "weighted_f1": res["weighted_f1"],
           "steps": len(res["step_seconds"]), "launches": count})
@@ -1111,6 +1264,11 @@ def serve_phases(torch, wrappers, smi: str, cfg, work: Path, *, device: str = "c
         checkpoint as ckpt)
     cuda = torch.device(device).type == "cuda"
     ck = work / "checkpoint"
+
+    def extractor(want: int, what: str) -> None:
+        # every predict and forward here runs a wav2vec2-base extractor in bf16
+        # with no gradient: the kernels, on the card only
+        expect_extractor(counts(wrappers), want if cuda else 0, f"serve: {what}")
     tok = tokenizer.HashTokenizer(cfg.text.vocab_size)
     (s0, b0), (s1, b1) = [(float(a), int(b)) for a, b in
                           (pair.split(":") for pair in buckets.split(","))]
@@ -1172,6 +1330,7 @@ def serve_phases(torch, wrappers, smi: str, cfg, work: Path, *, device: str = "c
             raise AssertionError(f"serve {kind}: the gates took {fired}")
         reset_counts(wrappers)
         got = served.predict(batch)
+        extractor(1, f"{kind}, one predict")
         count = counts(wrappers)["residual_stack"]
         if count != 1:
             raise AssertionError(f"serve {kind}: one predict launched A1 {count} times")
@@ -1189,6 +1348,7 @@ def serve_phases(torch, wrappers, smi: str, cfg, work: Path, *, device: str = "c
         wire = served_i16.predict({**{k: batch[k] for k in batch if k not in
                                       ("audio", "audio_mask")}, "audio": pcm, "audio_len": lens})
         a1 += counts(wrappers)["residual_stack"]
+        extractor(1, f"{kind}, one int16-wire predict")
         wire_diff = {k: float(np.abs(wire[k] - got[k]).max()) for k in got}
         if not all(np.allclose(wire[k], got[k], rtol=WIRE_TOL, atol=WIRE_TOL) for k in got):
             raise AssertionError(f"serve {kind}: int16 wire vs f32 wire {wire_diff}")
@@ -1203,6 +1363,7 @@ def serve_phases(torch, wrappers, smi: str, cfg, work: Path, *, device: str = "c
                 mdl.model_forward(params, cfg, dev, use_openmax=True).logits.cpu()
             eager_times.append(time.perf_counter() - t0)
         count = counts(wrappers)["residual_stack"]
+        extractor(2 * PREDICT_REPEATS, f"{kind}, predicts and eager forwards")
         if count != 2 * PREDICT_REPEATS:
             raise AssertionError(f"serve {kind}: {count} launches in {PREDICT_REPEATS} "
                                  f"predicts and forwards")
@@ -1225,6 +1386,7 @@ def serve_phases(torch, wrappers, smi: str, cfg, work: Path, *, device: str = "c
         served_second.predict(batch1)
         times.append(time.perf_counter() - t0)
     a1 += counts(wrappers)["residual_stack"]
+    extractor(PREDICT_REPEATS + 1, "the second bucket's predicts")
     emit({"phase": "path", "path": "serve: exported program vs eager model_forward",
           "card": smi, "B": b0, "seconds": s0, "tol": AGREE_TOL[cfg.compute_dtype],
           "wire_tol": WIRE_TOL, "agree": agree,
@@ -1285,6 +1447,7 @@ def serve_phases(torch, wrappers, smi: str, cfg, work: Path, *, device: str = "c
         reset_counts(wrappers)
         _, lone_ms, _, failed = post_all(url, b64[:1], 1)
         count = counts(wrappers)["residual_stack"]
+        extractor(1, "the lone HTTP request")
         if failed or count != 1:
             raise AssertionError(f"serve: the lone request: {failed}, {count} launches")
         a1 += count
@@ -1297,6 +1460,7 @@ def serve_phases(torch, wrappers, smi: str, cfg, work: Path, *, device: str = "c
             count = counts(wrappers)["residual_stack"]
             after = get_json(opener, url + "/stats")
             batches = after["batches"] - before["batches"]
+            extractor(batches, f"HTTP {name} batches")
             if failed or after["batch_errors"] or any(r is None or "emotion" not in r
                                                        for r in responses):
                 raise AssertionError(f"serve {name}: {len(failed)} failed, "
@@ -1372,6 +1536,7 @@ def serve_phases(torch, wrappers, smi: str, cfg, work: Path, *, device: str = "c
         student_core.close()
         teacher_core.close()
     batches = summary["student"]["batches"] + summary["teacher"]["batches"]
+    extractor(batches, "cascade batches, student and teacher")
     if count != batches or summary["student"]["batch_errors"] or summary["teacher"]["batch_errors"]:
         raise AssertionError(f"serve cascade: {count} launches in {batches} batches: {summary}")
     a1 += count
@@ -1407,6 +1572,7 @@ def serve_phases(torch, wrappers, smi: str, cfg, work: Path, *, device: str = "c
             iface.predict_emotion(str(wav), CLIP_TEXTS[1], use_tta=tta)
             times.append(time.perf_counter() - t0)
         count = counts(wrappers)["residual_stack"]
+        extractor(PREDICT_REPEATS + 2, f"infer tta={tta}")
         if count != PREDICT_REPEATS + 2:
             raise AssertionError(f"infer tta={tta}: {count} launches in the CLI's call and "
                                  f"{PREDICT_REPEATS + 1} interface calls")
@@ -1432,6 +1598,7 @@ def serve_phases(torch, wrappers, smi: str, cfg, work: Path, *, device: str = "c
     outs = pipe.process_long_audio(long_clip, CLIP_TEXTS[0], segment_seconds=segment_seconds)
     pipe_s = time.perf_counter() - t0
     count = counts(wrappers)["residual_stack"]
+    extractor(len(outs) + 1, "pipeline segments")
     if count != len(outs) + 1 or not all(np.isfinite(o["logits"]).all() for o in outs):
         raise AssertionError(f"pipeline: {count} launches in {len(outs)} + 1 segments")
     a1 += count
@@ -1455,6 +1622,7 @@ def serve_phases(torch, wrappers, smi: str, cfg, work: Path, *, device: str = "c
     stream_s = time.perf_counter() - t0
     results += [tail] if tail is not None else []
     count = counts(wrappers)["residual_stack"]
+    extractor(len(results), "stream segments")
     if count != len(results) or not all(np.isfinite(r["smoothed_logits"]).all()
                                         for r in results):
         raise AssertionError(f"stream: {count} launches in {len(results)} segments")
@@ -1541,7 +1709,7 @@ def large_backbone_phases(torch, wrappers, smi: str, work: Path, manifest: str) 
         def cudnn_path():
             x = x_cf
             for conv in convs[1:]:
-                x = layers.gelu(w2v.channel_layer_norm(conv["ln"], w2v._conv1d(conv, x, 2),
+                x = layers.gelu(w2v.channel_layer_norm(conv["ln"], layers.conv1d(conv, x, 2),
                                                       1e-5))
             return x
 
@@ -1587,6 +1755,9 @@ def large_backbone_phases(torch, wrappers, smi: str, work: Path, manifest: str) 
                 raise AssertionError(f"{preset} B={B}: residual_stack launched "
                                      f"{count['residual_stack']} times in {requests} forwards")
             launches["residual_stack"] += count["residual_stack"]
+            # the large presets' layer-norm extractor keeps the unfused path
+            expect_extractor(count, requests if preset == "wav2vec2-base" else 0,
+                             f"{preset} B={B}")
             if tuple(logits.shape) != (B, cfg.num_labels):
                 raise AssertionError(f"{preset} B={B}: logits {tuple(logits.shape)}")
             for field, v in zip(out._fields, out):
@@ -1722,16 +1893,20 @@ def fused_extractor_path(torch, wrappers, w2v_params: dict, audio_cfg, B: int, c
                          vocab: int) -> dict:
     """`feature_encoder(allow_fused=True)` `calls` times on B 4 s clips in
     bf16, with the launch counters set to 0 just before: one conv_tail
-    launch a call, the unfused extractor's frame mask and, within
-    BF16_TOL["conv_tail"], its features; the fused and unfused ms and the
-    transpose of conv 0's output that the fused path adds."""
+    launch a call (and in group mode one conv_front launch), the unfused
+    extractor's frame mask and, within BF16_TOL["conv_tail"], its
+    features; the fused and unfused ms and the transpose of conv 0's
+    output that the layer-norm route adds."""
     from multilingual_multimodal_speech_emotion_recognition_tpu_torch.models import (
         wav2vec2 as w2v)
     bf16 = torch.bfloat16
     batch = example_batch(B, T=CLIP_SAMPLES, S=TEXT_TOKENS, vocab=vocab)
     mask = torch.from_numpy(batch["audio_mask"]).cuda()
     wave = w2v.normalize_waveform(torch.from_numpy(batch["audio"]).cuda(), mask).to(bf16)
-    unfused, unfused_m = w2v.feature_encoder(w2v_params, audio_cfg, wave, mask)
+    with unfused_extractor(w2v):
+        unfused, unfused_m = w2v.feature_encoder(w2v_params, audio_cfg, wave, mask)
+        unfused_ms = cuda_ms(lambda: w2v.feature_encoder(w2v_params, audio_cfg, wave, mask),
+                             calls, warmup=1)
     torch.cuda.synchronize()
     reset_counts(wrappers)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -1743,9 +1918,10 @@ def fused_extractor_path(torch, wrappers, w2v_params: dict, audio_cfg, B: int, c
     torch.cuda.synchronize()
     count = counts(wrappers)
     what = f"feature_encoder ({audio_cfg.feat_extract_norm} norm) B={B}"
-    if count["conv_tail"] != calls:
-        raise AssertionError(f"{what}: conv_tail launched {count['conv_tail']} times in "
-                             f"{calls} calls")
+    fronts = calls if audio_cfg.feat_extract_norm == "group" else 0
+    if count["conv_tail"] != calls or count["conv_front"] != fronts:
+        raise AssertionError(f"{what}: conv_tail launched {count['conv_tail']} and "
+                             f"conv_front {count['conv_front']} times in {calls} calls")
     T7 = audio_cfg.feat_extract_output_lengths(CLIP_SAMPLES)
     if tuple(feats.shape) != (B, T7, audio_cfg.conv_dim[-1]) or feats.dtype != bf16:
         raise AssertionError(f"{what}: {tuple(feats.shape)} {feats.dtype}")
@@ -1759,9 +1935,7 @@ def fused_extractor_path(torch, wrappers, w2v_params: dict, audio_cfg, B: int, c
     return {"calls": calls, "launches": count, "max_abs_diff_vs_unfused": err,
             "tol": BF16_TOL["conv_tail"],
             "unfused_range": [float(unfused.min()), float(unfused.max())],
-            "fused_ms": start.elapsed_time(end) / calls,
-            "unfused_ms": cuda_ms(lambda: w2v.feature_encoder(w2v_params, audio_cfg, wave, mask),
-                                  calls, warmup=1),
+            "fused_ms": start.elapsed_time(end) / calls, "unfused_ms": unfused_ms,
             "transpose_ms": cuda_ms(lambda: x0.transpose(1, 2).contiguous(), 10)}
 
 
@@ -1879,6 +2053,7 @@ def int8_asr_phases(torch, wrappers, smi: str, cfg, work: Path, manifest: str) -
             if count["residual_stack"] != requests:
                 raise AssertionError(f"{name} forward B={B}: residual_stack launched "
                                      f"{count['residual_stack']} times in {requests} forwards")
+            expect_extractor(count, requests, f"{name} forward B={B}")   # convs stay float
             if int8_count != (requests * per_forward if name == "int8" else 0):
                 raise AssertionError(f"{name} forward B={B}: {int8_count} int8 products in "
                                      f"{requests} forwards of {per_forward}")
@@ -2387,6 +2562,9 @@ def academic_phases(torch, wrappers, smi: str, cfg, work: Path) -> int:
                             for r in res["few_shot"]) or len(adapt_steps.runs) != 2:
         raise AssertionError(f"academic_eval: non-finite entries {nonfinite}, few-shot {shots}")
     a1 += count["residual_stack"]
+    # the few-shot adaptation trains the heads on the frozen extractor
+    expect_extractor(count, count["residual_stack"] + sum(r["steps"] for r in adapt_steps.runs),
+                     "academic_eval CLI")
     bench = res["inference_benchmark"]
     emit({"phase": "path", "path": "academic_eval CLI (the 8-part battery)", "card": smi,
           "clips": MANIFEST_CLIPS, "batch_size": 8, "args": " ".join(ACADEMIC_ARGS),
@@ -2447,6 +2625,7 @@ def academic_phases(torch, wrappers, smi: str, cfg, work: Path) -> int:
     if not all(np.isfinite(v) for v in res["history"][0].values()):
         raise AssertionError(f"distill CLI: {res['history'][0]}")
     a1 += count["residual_stack"]
+    expect_extractor(count, count["residual_stack"], "distill CLI, teacher and student")
     warm = sorted(step_ms[1:])
     emit({"phase": "path", "path": "distill CLI (flagship -> small, 1 epoch, batch 8)",
           "card": smi, "cli_s": distill_s, "epoch_s": res["history"][0]["epoch_seconds"],
@@ -2468,6 +2647,7 @@ def academic_phases(torch, wrappers, smi: str, cfg, work: Path) -> int:
                              "--predictions_out", predictions[tier]])
         eval_s[tier] = time.perf_counter() - t0
         n = counts(wrappers)["residual_stack"]
+        expect_extractor(counts(wrappers), n, f"eval CLI on the {tier}")
         if n != len(res["step_seconds"]) or res["logits"].shape != (MANIFEST_CLIPS,
                                                                     cfg.num_labels):
             raise AssertionError(f"eval CLI on the {tier}: logits {res['logits'].shape}, "
@@ -2769,6 +2949,10 @@ def parallel_phases(torch, wrappers, smi: str, cfg, work: Path, manifest: str) -
             pipeline.SERDataset(manifest, DataConfig(dataset_root=datasets)), batch_size=8,
             tokenizer=tokenizer.get_tokenizer(vocab_size=cfg.text.vocab_size),
             shuffle=False).batches_per_epoch()
+        train_steps = pipeline.BucketedLoader(
+            pipeline.SERDataset(manifest, DataConfig(dataset_root=datasets)), batch_size=8,
+            tokenizer=tokenizer.get_tokenizer(vocab_size=cfg.text.vocab_size), shuffle=True,
+            drop_remainder=True).batches_per_epoch()
         reset_counts(wrappers)
         t0 = time.perf_counter()
         res = train_cli.main(args)
@@ -2783,6 +2967,8 @@ def parallel_phases(torch, wrappers, smi: str, cfg, work: Path, manifest: str) -
                                  f"{count['residual_stack']} times, not 2 passes x "
                                  f"{val_steps} steps")
         a1 += count["residual_stack"]
+        expect_extractor(count, count["residual_stack"] + train_steps,
+                         "train CLI under the pod branch")
         emit({"phase": "path", "path": "train CLI under the pod branch (world 1, --fsdp, "
               "1 epoch, batch 8, --use_amp)", "card": smi, "backend": backend,
               "cli_s": cli_s, "epoch_s": res["history"][0]["seconds"],
@@ -3007,13 +3193,14 @@ def tp_worker(rank: int, port: int, work: Path) -> int:
     from multilingual_multimodal_speech_emotion_recognition_tpu_torch.config import (
         ModelConfig, TrainConfig)
     from multilingual_multimodal_speech_emotion_recognition_tpu_torch.eval import (
-        evaluate as ev)
+        evaluate as ev, few_shot)
     from multilingual_multimodal_speech_emotion_recognition_tpu_torch.models import (
         model as mdl)
     from multilingual_multimodal_speech_emotion_recognition_tpu_torch.ops import (
-        residual_stack as rs)
+        conv_front as cf, conv_tail as ct, residual_stack as rs)
     from multilingual_multimodal_speech_emotion_recognition_tpu_torch.parallel import (
         mesh as mesh_lib, tensor)
+    kernels = {"conv_front": cf.conv_front, "conv_tail": ct.conv_tail}
     from multilingual_multimodal_speech_emotion_recognition_tpu_torch.train import (
         optimizer as opt_lib, train_step as ts)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3034,12 +3221,14 @@ def tp_worker(rank: int, port: int, work: Path) -> int:
             mdl.model_forward(view, cfg, batch, tp=tp)
             torch.cuda.synchronize()
             rs.residual_stack.launches = 0
+            reset_counts(kernels)
             times = []
             for _ in range(TP_FORWARDS):
                 t0 = time.perf_counter()
                 logits = mdl.model_forward(view, cfg, batch, tp=tp).logits.cpu()
                 times.append(1e3 * (time.perf_counter() - t0))
-        forward = {"ms_all": times, "launches": rs.residual_stack.launches, "logits": logits}
+        forward = {"ms_all": times, "launches": rs.residual_stack.launches, "logits": logits,
+                   "extractor": counts(kernels)}
 
         f32 = dataclasses.replace(cfg, compute_dtype="float32")
         tcfg = TrainConfig(batch_size=TRAIN_B, augment=True)
@@ -3081,8 +3270,9 @@ def tp_worker(rank: int, port: int, work: Path) -> int:
         # checkpoint's config; every pass's gathered rows kept
         manifest = str(work / "academic" / "manifest.jsonl")
         rs.residual_stack.launches = 0
+        reset_counts(kernels)
         t0 = time.perf_counter()
-        with PassRows(ev) as passes:
+        with PassRows(ev) as passes, AdaptSteps(few_shot) as adapt_steps:
             res = academic_cli.main(["--checkpoint", str(work / "checkpoint"), "--manifest",
                                      manifest, "--dataset_root",
                                      str(work / "academic" / "datasets"),
@@ -3092,6 +3282,7 @@ def tp_worker(rank: int, port: int, work: Path) -> int:
         passes.save(work / f"rank{rank}_passes.npz")
         (work / f"rank{rank}_academic.json").write_text(json.dumps({
             "seconds": seconds, "launches": rs.residual_stack.launches,
+            "extractor": counts(kernels), "adapt_steps": sum(r["steps"] for r in adapt_steps.runs),
             "num_samples": res["baseline"]["num_samples"],
             "results": {k: v for k, v in res.items() if k != "report"}},
             default=lambda o: o.tolist() if hasattr(o, "tolist") else str(o)))
@@ -3145,6 +3336,7 @@ def tensor_parallel_phases(torch, wrappers, smi: str, cfg, work: Path) -> int:
         count = counts(wrappers)["residual_stack"]
         if count != 2:
             raise AssertionError(f"12a: residual_stack launched {count} times in 2 forwards")
+        expect_extractor(counts(wrappers), 2, "12a: forwards on a (1, 1) mesh and unsharded")
         a1 += count
         tcfg = TrainConfig(batch_size=TRAIN_B, augment=True)
         opt = opt_lib.make_train_optimizer(params, lr=TRAIN_LR, total_steps=100)
@@ -3259,6 +3451,8 @@ def tensor_parallel_phases(torch, wrappers, smi: str, cfg, work: Path) -> int:
     if ranks[0]["forward"]["launches"] != TP_FORWARDS:
         raise AssertionError(f"12b: residual_stack launched {ranks[0]['forward']['launches']} "
                              f"times in {TP_FORWARDS} forwards")
+    for r, rank in enumerate(ranks):   # the extractor is replicated: every rank runs it
+        expect_extractor(rank["forward"]["extractor"], TP_FORWARDS, f"12b rank {r}")
     emit({"phase": "path", "path": "tensor parallel, two gloo ranks on one card, mesh (1, 2), "
           "vs one process", "card": smi, "B": TP_B, "train_B": TRAIN_B,
           "seconds": CLIP_SAMPLES / SAMPLE_RATE, "text_tokens": TEXT_TOKENS,
@@ -3272,7 +3466,8 @@ def tensor_parallel_phases(torch, wrappers, smi: str, cfg, work: Path) -> int:
                    "one_process_ms": median(one_step_ms),
                    "ms_all": ranks[0]["step_ms_all"], "one_process_ms_all": one_step_ms},
           "collectives": "gloo all-reduces through the host (a host cost, not NVLink's)",
-          "launches": {"residual_stack": ranks[0]["forward"]["launches"]}})
+          "launches": {"residual_stack": ranks[0]["forward"]["launches"],
+                       "extractor": [rank["forward"]["extractor"] for rank in ranks]}})
 
     # 12c. the academic_eval CLI on two ranks against 10c's one process
     acad = [json.loads((work / f"rank{r}_academic.json").read_text())
@@ -3318,6 +3513,8 @@ def tensor_parallel_phases(torch, wrappers, smi: str, cfg, work: Path) -> int:
                              f"{[a['launches'] for a in acad]} times, not once in each of "
                              f"{want_a1} eval forwards a rank")
     a1 += acad[0]["launches"]
+    for r, a in enumerate(acad):
+        expect_extractor(a["extractor"], a["launches"] + a["adapt_steps"], f"12c rank {r}")
     emit({"phase": "path", "path": "academic_eval CLI on two gloo ranks on one card, mesh "
           "(2, 1), vs 10c's one process", "card": smi, "clips": MANIFEST_CLIPS,
           "batch_size": 8, "args": " ".join(ACADEMIC_ARGS), "cli_s": acad[0]["seconds"],
@@ -3330,7 +3527,9 @@ def tensor_parallel_phases(torch, wrappers, smi: str, cfg, work: Path) -> int:
           "passes_held": len(one_passes), "nonfinite_entries": sum(nonfinite.values()),
           "logits_tol": AGREE_TOL["bfloat16"],
           "logits_max_abs_diff": logits_err,
-          "launches": {"residual_stack": [a["launches"] for a in acad]}})
+          "launches": {"residual_stack": [a["launches"] for a in acad],
+                       "extractor": [a["extractor"] for a in acad],
+                       "adapt_steps": [a["adapt_steps"] for a in acad]}})
     emit({"phase": "path", "path": "tensor parallelism (phase 12)",
           "seconds": time.perf_counter() - t_start, "workers_s": workers_s,
           "residual_stack_launches": a1})
@@ -3346,6 +3545,22 @@ def counts(wrappers) -> dict:
     return {name: w.launches for name, w in wrappers.items()}
 
 
+# The group-mode extractor's launches on the model paths: each of the front
+# and A4 once in every forward of a wav2vec2-base extractor on the card in
+# bf16 with no gradient recorded, and in no other. A path that counts
+# otherwise is kept and raised at the end, so that one run names them all.
+EXTRACTOR = {"conv_front": 0, "conv_tail": 0, "faults": []}
+
+
+def expect_extractor(count: dict, want: int, what: str) -> None:
+    got = (count["conv_front"], count["conv_tail"])
+    if got != (want, want):
+        EXTRACTOR["faults"].append(f"{what}: conv_front and conv_tail launched {got[0]} and "
+                                   f"{got[1]} times, not {want} each")
+    EXTRACTOR["conv_front"] += got[0]
+    EXTRACTOR["conv_tail"] += got[1]
+
+
 def main() -> int:
     t_main = time.perf_counter()
     import torch
@@ -3358,10 +3573,10 @@ def main() -> int:
     from multilingual_multimodal_speech_emotion_recognition_tpu_torch.models import (
         layers, model as mdl, wav2vec2 as w2v)
     from multilingual_multimodal_speech_emotion_recognition_tpu_torch.ops import (
-        _build, attentive_pooling as ap, conv_tail as ct, flash_attention as fa,
-        residual_stack as rs)
-    wrappers = {"residual_stack": rs.residual_stack, "conv_tail": ct.conv_tail,
-                "flash_attention": fa.flash_attention,
+        _build, attentive_pooling as ap, conv_front as cf, conv_tail as ct,
+        flash_attention as fa, residual_stack as rs)
+    wrappers = {"residual_stack": rs.residual_stack, "conv_front": cf.conv_front,
+                "conv_tail": ct.conv_tail, "flash_attention": fa.flash_attention,
                 "attentive_pooling": ap.attentive_stats_pooling}
     bf16 = torch.bfloat16
 
@@ -3381,7 +3596,7 @@ def main() -> int:
     # 2. build
     t0 = time.perf_counter()
     _build.build_all(KERNEL_NAMES)
-    for module in (rs, ct, fa, ap):
+    for module in (rs, cf, ct, fa, ap):
         module.build()
     emit({"phase": "build", "kernels": list(KERNEL_NAMES),
           "seconds": time.perf_counter() - t0,
@@ -3450,7 +3665,7 @@ def main() -> int:
         def cudnn_path():
             x = x_cf
             for conv in convs[1:]:
-                x = layers.gelu(w2v._conv1d(conv, x, 2))
+                x = layers.gelu(layers.conv1d(conv, x, 2))
             return x
 
         (bound_ms, bound_by), flops = conv_tail_bound(B, T1, C, bf16)
@@ -3466,6 +3681,10 @@ def main() -> int:
     emit({"phase": "kernel", "name": "conv_tail", "C": C, "T1": T1, "tol": BF16_TOL["conv_tail"],
           "f32_tol": KERNEL_TOL, **tail})
     torch.cuda.empty_cache()
+
+    # 3b'. the group-mode extractor's two kernels at the benchmark's buckets
+    extractor = extractor_phase(torch)
+    emit({"phase": "kernel", "name": "conv_front + conv_tail", **extractor})
 
     # 3c. A3: masked flash attention at the flagship's attention sites
     attn = {"max_abs_err": {}, "timing": {}}
@@ -3616,6 +3835,7 @@ def main() -> int:
             raise AssertionError(f"B={B}: residual_stack launched {count['residual_stack']} "
                                  f"times in {requests} forwards")
         launches["residual_stack"] += count["residual_stack"]
+        expect_extractor(count, requests, f"model_forward B={B}")
         if tuple(logits.shape) != (B, cfg.num_labels) or not torch.isfinite(logits).all():
             raise AssertionError(f"B={B}: logits {tuple(logits.shape)} not finite "
                                  f"({B}, {cfg.num_labels})")
@@ -3669,6 +3889,7 @@ def main() -> int:
                 raise AssertionError(f"{kind} B={B}: residual_stack launched "
                                      f"{count['residual_stack']} times in {requests} forwards")
             launches["residual_stack"] += count["residual_stack"]
+            expect_extractor(count, requests, f"model_forward with the DSP, {kind} B={B}")
             for field, v in zip(out._fields, out):
                 if not torch.isfinite(v.float()).all():
                     raise AssertionError(f"{kind} B={B}: {field} is not finite")
@@ -3697,6 +3918,7 @@ def main() -> int:
         record = fused_extractor_path(torch, wrappers, w2v_params, cfg.audio, B, calls,
                                       vocab=cfg.text.vocab_size)
         launches["conv_tail"] += record["launches"]["conv_tail"]
+        launches["conv_front"] += record["launches"]["conv_front"]
         emit({"phase": "path", "path": "feature_encoder(allow_fused=True)", "B": B,
               "seconds": 4.0, "card": smi, **record})
     del w2v_params
@@ -3776,6 +3998,7 @@ def main() -> int:
                                  f"{count['residual_stack']} times in {steps} TTA and "
                                  f"{cal_steps} calibration steps")
         launches["residual_stack"] += count["residual_stack"]
+        expect_extractor(count, steps + cal_steps, "manifest eval")
         logits = res["logits"]
         if logits.shape != (MANIFEST_CLIPS, cfg.num_labels) or not np.isfinite(logits).all():
             raise AssertionError(f"manifest eval: logits {logits.shape} not finite")
@@ -3846,6 +4069,7 @@ def main() -> int:
                 raise AssertionError(f"TTA B={B}: residual_stack launched "
                                      f"{count['residual_stack']} times in {requests} calls")
             launches["residual_stack"] += count["residual_stack"]
+            expect_extractor(count, requests, f"TTA B={B}")
             if tuple(out.shape) != (B, cfg.num_labels) or not torch.isfinite(out).all():
                 raise AssertionError(f"TTA B={B}: logits {tuple(out.shape)} not finite")
             _, reads = host_reads(torch, lambda: tta_step(params, batch, generator).cpu())
@@ -3874,6 +4098,9 @@ def main() -> int:
         shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()
 
+    main_path = {k: EXTRACTOR[k] for k in ("conv_front", "conv_tail")}
+    for kname, n in main_path.items():
+        launches[kname] += n
     for kname, n in launches.items():
         if n < 1:
             raise AssertionError(f"{kname} was launched no time on its path")
@@ -3900,7 +4127,15 @@ def main() -> int:
          "bound_ms": tail128["bound_ms"], "bound_by": tail128["bound_by"],
          "ms_over_bound": tail128["ms_over_bound"], "tflop_per_s": tail128["tflop_per_s"],
          "library_ms": None, "cudnn_path_ms": tail128["cudnn_path_ms"],
+         "model_path_launches": main_path["conv_tail"],
          "B": 128, "at_B4": tail["timing"][4], "ln_route": large["ln_route"]},
+        {"name": "conv_front", "route": "cuda", "source": SOURCE.format("conv_front"),
+         "replaces": None, "launches": launches["conv_front"],
+         "model_path_launches": main_path["conv_front"],
+         "max_abs_err": max(b["front"]["max_abs_err"] for b in extractor["buckets"].values()),
+         "tol": BF16_TOL["conv_tail"], "library_ms": None, "buckets": {
+             k: {"front": b["front"], "tail": b["tail"], "feature_encoder": b["feature_encoder"]}
+             for k, b in extractor["buckets"].items()}},
         {"name": "flash_attention", "route": "cuda", "source": SOURCE.format("flash_attention"),
          "replaces": REPLACES.format(295), "launches": launches["flash_attention"],
          "max_abs_err": max(attn["max_abs_err"].values()), "tol": BF16_TOL["attention"],
@@ -3919,6 +4154,9 @@ def main() -> int:
          "library_ms": None, "B": 128, "site": "pool_a", "pool_route": "bf16",
          "plan": pool["plan"]["pool_a B=128"], "sites": pool["timing"]},
     ]})
+    if EXTRACTOR["faults"]:
+        raise AssertionError("the group-mode extractor's kernels on the model paths: "
+                             + "; ".join(EXTRACTOR["faults"]))
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -5,6 +5,8 @@ parameters with the JAX package's keys and layouts.
                     an int8 slot ``{"kernel_q", "w_scale"[, "bias"]}`` goes
                     to ops/quant.linear_int8
   * ``layer_norm``: ``{"scale": [dim], "bias": [dim]}``
+  * ``conv1d``:     ``{"kernel": [out, in/groups, K], "bias": [out]}`` over
+                    a channels-first [B, C, T]
   * ``mha``:        separate q/k/v/out projections, each a ``linear``
 
 Counterpart of multilingual_multimodal_speech_emotion_recognition_tpu/
@@ -99,6 +101,24 @@ def linear(params: dict, x: Tensor) -> Tensor:
     y = torch.matmul(x, params["kernel"])
     if "bias" in params:
         y = y + params["bias"]
+    return y
+
+
+def conv1d(p: dict, x: Tensor, stride: int, *, groups: int = 1,
+           padding: int = 0) -> Tensor:
+    """x: [B, C_in, T]; kernel [C_out, C_in/groups, K] -> [B, C_out, T'].
+    The bias is added after the product, in x.dtype."""
+    if x.device.type == "cpu" and x.dtype == torch.bfloat16:
+        # torch's CPU (oneDNN) bf16 grouped conv1d returns wrong values at
+        # some shapes (e.g. 4 groups of 4 channels, K=16); an f32 product
+        # rounded once to bf16 is what the bf16 conv computes
+        y = F.conv1d(x.float(), p["kernel"].to(x.dtype).float(), stride=stride,
+                     padding=padding, groups=groups).to(x.dtype)
+    else:
+        y = F.conv1d(x, p["kernel"].to(x.dtype), stride=stride,
+                     padding=padding, groups=groups)
+    if "bias" in p:
+        y = y + p["bias"].to(y.dtype)[:, None]
     return y
 
 

@@ -17,9 +17,10 @@ every statistic is taken over valid samples only or per frame.
 In training (deterministic=False) SpecAugment's time masks and the
 dropout sites of the JAX package apply, drawn from a torch.Generator.
 
-Layout: the conv stack runs channels-first ([B, C, T], torch's NCW) so that
-it needs no transposes, and conv kernels are stored [C_out, C_in/groups, K]
-(the weight bridge transposes the JAX package's WIO). feature_encoder and
+Layout: the unfused conv stack runs channels-first ([B, C, T], torch's NCW)
+so that it needs no transposes; the kernels' route (`front_route`) runs
+channels-last from conv 0 on. Conv kernels are stored [C_out, C_in/groups,
+K] (the weight bridge transposes the JAX package's WIO). feature_encoder and
 wav2vec2_encode return [B, T, C] like their JAX counterparts.
 """
 
@@ -32,7 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import Wav2Vec2Config
-from ..ops import conv_tail
+from ..ops import conv_front, conv_tail
 from ..utils import profiling
 from ..utils.runtime import export_safe_cache
 from . import layers, remat as remat_lib
@@ -109,38 +110,6 @@ def normalize_waveform(wave: Tensor, mask: Tensor, eps: float = 1e-7) -> Tensor:
     return (wave - mean) * torch.rsqrt(var + eps) * mask
 
 
-def _conv1d(p: dict, x: Tensor, stride: int, *, groups: int = 1,
-            padding: int = 0) -> Tensor:
-    """x: [B, C_in, T]; kernel [C_out, C_in/groups, K] -> [B, C_out, T'].
-    The bias is added after the product, in x.dtype."""
-    if x.device.type == "cpu" and x.dtype == torch.bfloat16:
-        # torch's CPU (oneDNN) bf16 grouped conv1d returns wrong values at
-        # some shapes (e.g. 4 groups of 4 channels, K=16); an f32 product
-        # rounded once to bf16 is what the bf16 conv computes
-        y = F.conv1d(x.float(), p["kernel"].to(x.dtype).float(), stride=stride,
-                     padding=padding, groups=groups).to(x.dtype)
-    else:
-        y = F.conv1d(x, p["kernel"].to(x.dtype), stride=stride,
-                     padding=padding, groups=groups)
-    if "bias" in p:
-        y = y + p["bias"].to(y.dtype)[:, None]
-    return y
-
-
-def masked_group_norm_per_channel(p: dict, x: Tensor, frame_mask: Tensor,
-                                  eps: float = 1e-5) -> Tensor:
-    """GroupNorm(C, C) with statistics over valid frames only.
-    x: [B, C, T] (channels-first), frame_mask: [B, T]."""
-    xf = x.float()
-    m = frame_mask.float()[:, None, :]
-    n = m.sum(-1, keepdim=True).clamp(min=1.0)
-    mean = (xf * m).sum(-1, keepdim=True) / n
-    var = ((xf - mean).square() * m).sum(-1, keepdim=True) / n
-    y = (xf - mean) * torch.rsqrt(var + eps)
-    y = y * p["scale"].float()[:, None] + p["bias"].float()[:, None]
-    return y.to(x.dtype)
-
-
 def channel_layer_norm(p: dict, x: Tensor, eps: float) -> Tensor:
     """`layers.layer_norm` over the channels of each frame of a
     channels-first x [B, C, T] (HF Wav2Vec2LayerNormConvLayer): f32
@@ -153,6 +122,21 @@ def channel_layer_norm(p: dict, x: Tensor, eps: float) -> Tensor:
     return y.to(x.dtype)
 
 
+def front_route(params: dict, cfg: Wav2Vec2Config, wave: Tensor) -> bool:
+    """Whether `feature_encoder` runs the group-mode extractor on the two
+    kernels (ops/conv_front then ops/conv_tail): a CUDA bf16 waveform, the
+    group norm, both kernels' geometry, and no gradient recorded for the
+    extractor (the kernels have no backward)."""
+    if not (wave.is_cuda and wave.dtype == torch.bfloat16
+            and cfg.feat_extract_norm == "group"
+            and conv_front.conv_front_supported(cfg.conv_kernel, cfg.conv_stride, cfg.conv_dim)
+            and conv_tail.conv_tail_supported(cfg.conv_kernel, cfg.conv_stride, cfg.conv_dim)):
+        return False
+    leaves = [wave, *params["group_norm"].values()]
+    leaves += [t for conv in params["convs"] for t in conv.values()]
+    return not (torch.is_grad_enabled() and any(t.requires_grad for t in leaves))
+
+
 def feature_encoder(params: dict, cfg: Wav2Vec2Config, wave: Tensor,
                     sample_mask: Tensor, *,
                     allow_fused: bool = False) -> Tuple[Tensor, Tensor]:
@@ -160,40 +144,48 @@ def feature_encoder(params: dict, cfg: Wav2Vec2Config, wave: Tensor,
 
     Each conv adds its bias where it has one; in layer mode a per-frame
     channel LayerNorm follows every conv, in group mode a masked group norm
-    follows conv 0 only; then GELU. `allow_fused=True` runs conv layers 1-6
-    through the fused tail (ops/conv_tail.conv_tail, with the per-layer LN
-    in layer mode) when the input is bf16 and the stack has the tail's
-    geometry (`conv_tail_supported`); otherwise, and by default, the layers
-    run one by one. Conv 0 and its norm run either way; its output is
-    transposed once to the tail's [B, T1, C]."""
+    follows conv 0 only; then GELU. Where `front_route` holds, group mode
+    runs on two kernels: conv 0, its norm and GELU write the tail's
+    [B, T1, C] (ops/conv_front), and layers 1-6 take it as it is
+    (ops/conv_tail). Otherwise conv 0 and its norm run unfused, and
+    `allow_fused=True` runs layers 1-6 through the fused tail (with the
+    per-layer LN in layer mode) when the input is bf16 and the stack has
+    the tail's geometry (`conv_tail_supported`), after one transpose of
+    conv 0's output to the tail's [B, T1, C]; by default the layers run
+    one by one."""
     with profiling.span("audio_encoder.conv"):
         check_supported(cfg)
         convs = params["convs"]
         layer_mode = cfg.feat_extract_norm == "layer"
         eps = cfg.layer_norm_eps
+        samples = sample_mask.to(torch.int32).sum(-1)
 
         def norm_gelu(conv: dict, x: Tensor) -> Tensor:
             return layers.gelu(channel_layer_norm(conv["ln"], x, eps) if layer_mode else x)
 
-        use_fused = (allow_fused and wave.dtype == torch.bfloat16
-                     and conv_tail.conv_tail_supported(cfg.conv_kernel, cfg.conv_stride,
-                                                       cfg.conv_dim))
-        x = _conv1d(convs[0], wave[:, None, :], cfg.conv_stride[0])
-        lengths = sample_mask.to(torch.int32).sum(-1)
-        lengths = (lengths - cfg.conv_kernel[0]) // cfg.conv_stride[0] + 1
-        if layer_mode:
-            x = norm_gelu(convs[0], x)
+        if front_route(params, cfg, wave):
+            x = conv_front.conv_front(convs[0], params["group_norm"], wave, samples,
+                                      cfg.conv_stride[0])
+            x = conv_tail.conv_tail(convs, x, has_ln=False)
         else:
-            fm = torch.arange(x.shape[-1], device=x.device)[None, :] < lengths[:, None]
-            x = layers.gelu(masked_group_norm_per_channel(params["group_norm"], x, fm))
-        if use_fused:
-            x = conv_tail.conv_tail(convs, x.transpose(1, 2).contiguous(), has_ln=layer_mode,
-                                    ln_eps=eps)
-        else:
-            for conv, stride in zip(convs[1:], cfg.conv_stride[1:]):
-                x = norm_gelu(conv, _conv1d(conv, x, stride))
-            x = x.transpose(1, 2)
-        for kernel, stride in zip(cfg.conv_kernel[1:], cfg.conv_stride[1:]):
+            use_fused = (allow_fused and wave.dtype == torch.bfloat16
+                         and conv_tail.conv_tail_supported(cfg.conv_kernel, cfg.conv_stride,
+                                                           cfg.conv_dim))
+            if layer_mode:
+                x = norm_gelu(convs[0], layers.conv1d(convs[0], wave[:, None, :],
+                                                      cfg.conv_stride[0]))
+            else:
+                x = conv_front.conv_front_plain(convs[0], params["group_norm"], wave,
+                                                samples, cfg.conv_stride[0]).transpose(1, 2)
+            if use_fused:
+                x = conv_tail.conv_tail(convs, x.transpose(1, 2).contiguous(),
+                                        has_ln=layer_mode, ln_eps=eps)
+            else:
+                for conv, stride in zip(convs[1:], cfg.conv_stride[1:]):
+                    x = norm_gelu(conv, layers.conv1d(conv, x, stride))
+                x = x.transpose(1, 2)
+        lengths = samples
+        for kernel, stride in zip(cfg.conv_kernel, cfg.conv_stride):
             lengths = (lengths - kernel) // stride + 1
         frame_mask = (torch.arange(x.shape[1], device=x.device)[None, :]
                       < lengths[:, None]).to(x.dtype)
@@ -320,7 +312,7 @@ def _positional_conv(params: dict, cfg: Wav2Vec2Config, h: Tensor, tp=None) -> T
         x = tpl.local_part(x, 1, span, tp)
         conv = {**conv, "bias": tpl.local_part(conv["bias"], 0, span, tp)}
         groups = g_hi - g_lo
-    pos = _conv1d(conv, x, 1, groups=groups, padding=K // 2)
+    pos = layers.conv1d(conv, x, 1, groups=groups, padding=K // 2)
     # an even kernel with padding k//2 gives T+1 frames: keep the first T
     pos = layers.gelu(pos[:, :, : h.shape[1]].transpose(1, 2))
     return pos if tp is None else tpl.gather_from_model(pos, 2, tp)
@@ -340,7 +332,8 @@ def wav2vec2_encode(params: dict, cfg: Wav2Vec2Config, wave: Tensor,
     tensor-parallel on this rank's shards; the rest is replicated."""
     if normalize:
         wave = normalize_waveform(wave, sample_mask).to(wave.dtype)
-    # the unfused extractor, as the JAX package's wav2vec2_encode runs it
+    # allow_fused off, as the JAX package's wav2vec2_encode runs it; the
+    # group-mode extractor still takes the kernels where front_route holds
     feats, frame_mask = feature_encoder(params, cfg, wave, sample_mask)
     h = layers.layer_norm(params["feat_proj"]["ln"], feats, eps=cfg.layer_norm_eps)
     h = layers.linear(params["feat_proj"]["proj"], h)

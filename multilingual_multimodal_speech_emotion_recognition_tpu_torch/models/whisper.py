@@ -43,7 +43,6 @@ import torch.nn.functional as F
 from ..frontend import spectral as sp
 from . import layers
 from .hf_convert import _lin, _ln, _np, _stack, _tensors
-from .wav2vec2 import _conv1d
 
 Tensor = torch.Tensor
 
@@ -265,8 +264,8 @@ def encode(params: dict, cfg: WhisperConfig, mel: Tensor) -> Tensor:
     enc = params["encoder"]
     eps = cfg.layer_norm_eps
     x = mel.to(enc["conv1"]["kernel"].dtype)
-    x = F.gelu(_conv1d(enc["conv1"], x, 1, padding=1))
-    x = F.gelu(_conv1d(enc["conv2"], x, 2, padding=1)).transpose(1, 2)
+    x = F.gelu(layers.conv1d(enc["conv1"], x, 1, padding=1))
+    x = F.gelu(layers.conv1d(enc["conv2"], x, 2, padding=1)).transpose(1, 2)
     x = x + enc["pos"][:x.shape[1]][None]
     stack = enc["layers"]
     for i in range(stack["attn_ln"]["scale"].shape[0]):

@@ -23,14 +23,21 @@ bf16 takes a persistent wgmma GEMM fed by TMA through an mbarrier ring
 (one tensor map per tap over the overlapping rows, the weights packed
 K-major), f32 a CUDA-core GEMM. At wav2vec2-base width, 4 s clips and
 B=128 the bound on an H100 is the products: 2.495 TFLOP, 2.52 ms at the
-bf16 tensor cores' 989 TFLOP/s. `conv_tail` takes the plain version for a
-tensor on the CPU only; for a CUDA tensor it launches the kernel or raises.
+bf16 tensor cores' 989 TFLOP/s.
+
+The tail is the registered op `ser_torch::conv_tail` (its CPU
+implementation the plain version, its CUDA implementation the launch), so
+a program traced by torch.export holds one node for it. `conv_tail` takes
+the plain version for a tensor on the CPU only; for a CUDA tensor it
+launches the kernel or raises. The kernel has no backward: on a CUDA
+tensor the wrapper raises where autograd is recording and an input wants
+a gradient.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 
@@ -123,24 +130,53 @@ def build() -> None:
     _build.load("conv_tail", _SIGNATURES)
 
 
-def conv_tail(convs: list, x1: Tensor, *, has_ln: bool,
-              ln_eps: float = 1e-5) -> Tensor:
-    """Conv layers 1-6 over the layer-0 output x1 [B, T1, C] -> [B, T7, C].
-    convs: params["convs"] (7 layers, kernels [C_out, C_in, K], optional
-    "bias" and "ln"). A CPU tensor takes the plain version; a CUDA tensor
-    launches the kernel (which packs the weights itself), or raises on what
-    the kernel does not take."""
-    if x1.dim() != 3:
-        raise ValueError(f"conv_tail: x1 {tuple(x1.shape)} is not [B, T1, C]")
+def _layer_tensors(convs: list) -> tuple:
+    """The op's per-layer tensors: kernels, and biases, LN scales and LN
+    shifts or None where a layer has none."""
+    norms = [c.get("ln", {}) for c in convs]
+    return ([c["kernel"] for c in convs], [c.get("bias") for c in convs],
+            [n.get("scale") for n in norms], [n.get("bias") for n in norms])
+
+
+def _convs(kernels, biases, ln_scales, ln_shifts) -> list:
+    """params["convs"] again from `_layer_tensors`."""
+    convs = []
+    for kernel, bias, scale, shift in zip(kernels, biases, ln_scales, ln_shifts):
+        conv = {"kernel": kernel}
+        if bias is not None:
+            conv["bias"] = bias
+        if scale is not None:
+            conv["ln"] = {"scale": scale, "bias": shift}
+        convs.append(conv)
+    return convs
+
+
+@torch.library.custom_op("ser_torch::conv_tail", mutates_args=(), device_types="cpu")
+def conv_tail_op(x1: Tensor, kernels: List[Tensor], biases: List[Optional[Tensor]],
+                 ln_scales: List[Optional[Tensor]], ln_shifts: List[Optional[Tensor]],
+                 has_ln: bool, ln_eps: float) -> Tensor:
+    """The tail as a registered op, so that the dispatcher, and with it
+    torch.export, sees one node where the kernel launches. On the CPU it
+    is the plain version; on CUDA the kernel (`_conv_tail_cuda`)."""
+    return conv_tail_plain(_convs(kernels, biases, ln_scales, ln_shifts), x1,
+                           has_ln=has_ln, ln_eps=ln_eps)
+
+
+@conv_tail_op.register_fake
+def _conv_tail_fake(x1, kernels, biases, ln_scales, ln_shifts, has_ln, ln_eps):
+    B, T1, C = x1.shape
+    return x1.new_empty((B, tail_lengths(T1)[-1], C))
+
+
+@conv_tail_op.register_kernel("cuda")
+def _conv_tail_cuda(x1: Tensor, kernels: List[Tensor], biases: List[Optional[Tensor]],
+                    ln_scales: List[Optional[Tensor]], ln_shifts: List[Optional[Tensor]],
+                    has_ln: bool, ln_eps: float) -> Tensor:
+    """The launch: checks what the kernel takes, packs the weights and
+    counts the launch on the `conv_tail` wrapper."""
+    convs = _convs(kernels, biases, ln_scales, ln_shifts)
     B, T1, C = x1.shape
     lengths = tail_lengths(T1)
-    if lengths[-1] < 1:
-        raise ValueError(f"conv_tail: T1={T1} frames are too few for the "
-                         "six stride-2 layers")
-    if x1.device.type == "cpu":
-        return conv_tail_plain(convs, x1, has_ln=has_ln, ln_eps=ln_eps)
-    if x1.device.type != "cuda":
-        raise ValueError(f"conv_tail: no kernel for device {x1.device}")
     _check_convs(convs, C, has_ln)
     if (x1.dtype not in ROUTES or not x1.is_contiguous()
             or x1.data_ptr() % 16 != 0):
@@ -175,6 +211,33 @@ def conv_tail(convs: list, x1: Tensor, *, has_ln: bool,
                   scratch.data_ptr(), out.data_ptr(), B, T1, C, int(has_ln), ln_eps)
     conv_tail.launches += 1
     return out
+
+
+def conv_tail(convs: list, x1: Tensor, *, has_ln: bool,
+              ln_eps: float = 1e-5) -> Tensor:
+    """Conv layers 1-6 over the layer-0 output x1 [B, T1, C] -> [B, T7, C].
+    convs: params["convs"] (7 layers, kernels [C_out, C_in, K], optional
+    "bias" and "ln"). It calls `ser_torch::conv_tail`: on a CPU tensor the
+    plain version, on a CUDA tensor the kernel (which packs the weights
+    itself), which raises on what it does not take. Where autograd records
+    and x1 or a parameter wants a gradient, a CPU tensor takes the plain
+    version with its history and a CUDA tensor raises: the kernel has no
+    backward."""
+    if x1.dim() != 3:
+        raise ValueError(f"conv_tail: x1 {tuple(x1.shape)} is not [B, T1, C]")
+    if tail_lengths(x1.shape[1])[-1] < 1:
+        raise ValueError(f"conv_tail: T1={x1.shape[1]} frames are too few for the "
+                         "six stride-2 layers")
+    if x1.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"conv_tail: no kernel for device {x1.device}")
+    tensors = _layer_tensors(convs)
+    if torch.is_grad_enabled() and (x1.requires_grad or any(
+            t is not None and t.requires_grad for group in tensors for t in group)):
+        if x1.device.type == "cpu":
+            return conv_tail_plain(convs, x1, has_ln=has_ln, ln_eps=ln_eps)
+        raise RuntimeError("conv_tail: the CUDA kernel has no backward; run it under "
+                           "torch.no_grad() or torch.inference_mode()")
+    return torch.ops.ser_torch.conv_tail(x1, *tensors, has_ln, ln_eps)
 
 
 conv_tail.launches = 0

@@ -186,6 +186,210 @@ def test_conv_tail_kernel_rejects_what_it_does_not_take(cuda):
         ct.conv_tail(convs, x1, has_ln=True)
 
 
+def _front_inputs(device, B, seconds, C=512, seed=0, short_rows=True):
+    """conv 0 (He-scaled, bf16), a perturbed group norm, and B normalised
+    bf16 clips in a `seconds` bucket with ragged lengths: row 0 at the
+    bucket's full length, with `short_rows` row 1 shorter than conv 0's
+    kernel (no valid frame) and row 2 one frame, the rest uniform in a
+    quarter to all of it."""
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.models import (
+        wav2vec2 as w2v)
+    g = torch.Generator(device=device).manual_seed(seed)
+    T = seconds * 16000
+    samples = torch.randint(T // 4, T + 1, (B,), device=device, generator=g)
+    samples[:3 if short_rows else 1] = torch.tensor([T, 7, 10][:3 if short_rows else 1],
+                                                    device=device)
+    mask = (torch.arange(T, device=device)[None, :] < samples[:, None]).float()
+    wave = w2v.normalize_waveform(torch.randn(B, T, device=device, generator=g), mask)
+    conv0 = {"kernel": (torch.randn(C, 1, 10, device=device, generator=g)
+                        * (2.0 / 10) ** 0.5).bfloat16()}
+    gn = {"scale": 1 + 0.1 * torch.randn(C, device=device, generator=g),
+          "bias": 0.1 * torch.randn(C, device=device, generator=g)}
+    return conv0, gn, wave.bfloat16(), mask, samples
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,seconds", [(512, 2), (256, 4), (128, 8)],
+                         ids=["b512-2s", "b256-4s", "b128-8s"])
+def test_conv_front_kernel_matches_plain_at_the_buckets(cuda, B, seconds):
+    """The front kernel at the benchmark's three bucket shapes against its
+    plain version, with ragged rows (a full one, one with no valid frame,
+    one with a single frame): the same rounding points, so values differ
+    only where an f32 sum in another order flips a bf16 rounding, by at
+    most the tail's bf16 bound and in a small share of the outputs."""
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.ops import (
+        conv_front as cf)
+    conv0, gn, wave, _, samples = _front_inputs(cuda, B, seconds, seed=B)
+    before = cf.conv_front.launches
+    with torch.no_grad():
+        got = cf.conv_front(conv0, gn, wave, samples, 5)
+        torch.cuda.synchronize()
+        assert cf.conv_front.launches == before + 1
+        assert got.is_contiguous() and got.dtype == torch.bfloat16
+        assert tuple(got.shape) == (B, (seconds * 16000 - 10) // 5 + 1, 512)
+        for rows in torch.arange(B, device=cuda).split(32):   # the plain version's f32 copies
+            want = cf.conv_front_plain(conv0, gn, wave[rows], samples[rows], 5)
+            part = got[rows].float()
+            tol = BF16_TOL["conv_tail"]
+            torch.testing.assert_close(part, want.float(), rtol=tol, atol=tol)
+            assert float((part != want.float()).float().mean()) < 1e-3
+            del want, part
+
+
+def _front_f64(conv0, gn, wave, samples, eps=1e-5):
+    """The plain version's rounding points (conv 0 rounded to bf16, the
+    normalised value rounded, the tanh GELU rounded) with every sum and
+    product in f64: [B, T1, C]."""
+    x = torch.nn.functional.conv1d(wave.double()[:, None, :], conv0["kernel"].double(),
+                                   stride=5).bfloat16().double()
+    frames = (samples - 10) // 5 + 1
+    m = (torch.arange(x.shape[-1], device=x.device)[None, :]
+         < frames[:, None]).double()[:, None]
+    n = m.sum(-1, keepdim=True).clamp(min=1.0)
+    mean = (x * m).sum(-1, keepdim=True) / n
+    var = ((x - mean).square() * m).sum(-1, keepdim=True) / n
+    y = ((x - mean) / torch.sqrt(var + eps) * gn["scale"].double()[:, None]
+         + gn["bias"].double()[:, None]).bfloat16().double()
+    g = 0.5 * y * (1 + torch.tanh((2 / torch.pi) ** 0.5 * (y + 0.044715 * y ** 3)))
+    return g.bfloat16().transpose(1, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,seconds", [(512, 2), (256, 4), (128, 8)],
+                         ids=["b512-2s", "b256-4s", "b128-8s"])
+def test_conv_front_kernel_is_as_near_f64_as_plain(cuda, B, seconds):
+    """Against the same rounding points computed in f64, the front kernel
+    is off on about as many outputs as its plain version (each of them
+    sums in f32, in its own order): a rounding point moved, dropped or
+    computed otherwise would set it off on many more. 32 rows a bucket."""
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.ops import (
+        conv_front as cf)
+    conv0, gn, wave, _, samples = _front_inputs(cuda, B, seconds, seed=B)
+    off = {"kernel": 0, "plain": 0}
+    with torch.no_grad():
+        got = cf.conv_front(conv0, gn, wave, samples, 5)
+        for rows in torch.arange(3, 35, device=cuda).split(4):
+            want = _front_f64(conv0, gn, wave[rows], samples[rows])
+            off["kernel"] += int((got[rows] != want).sum())
+            off["plain"] += int((cf.conv_front_plain(conv0, gn, wave[rows], samples[rows], 5)
+                                 != want).sum())
+    assert off["plain"] > 0 and off["kernel"] <= 1.25 * off["plain"], off
+
+
+@pytest.mark.cuda
+def test_conv_front_kernel_rejects_what_it_does_not_take(cuda):
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.ops import (
+        conv_front as cf)
+    conv0, gn, wave, _, samples = _front_inputs(cuda, 4, 1, C=128)
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="bf16 wave"):
+            cf.conv_front(conv0, gn, wave.float(), samples, 5)
+        with pytest.raises(ValueError, match="stride"):
+            cf.conv_front(conv0, gn, wave, samples, 4)
+        with pytest.raises(ValueError, match="int64"):
+            cf.conv_front(conv0, gn, wave, samples.int(), 5)
+        narrow = {"kernel": conv0["kernel"][:64]}
+        with pytest.raises(ValueError, match="C % 128"):
+            cf.conv_front(narrow, {k: v[:64] for k, v in gn.items()}, wave, samples, 5)
+    kernel = {"kernel": conv0["kernel"].clone().requires_grad_()}
+    with pytest.raises(RuntimeError, match="no backward"):
+        cf.conv_front(kernel, gn, wave, samples, 5)
+
+
+def _base_extractor(device, C=512, seed=0):
+    """wav2vec2-base's extractor geometry (7 convs of C channels) with
+    He-scaled bf16 kernels and a perturbed group norm."""
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.config import (
+        Wav2Vec2Config)
+    cfg = Wav2Vec2Config(conv_dim=(C,) * 7)
+    g = torch.Generator(device=device).manual_seed(seed)
+    convs, c_in = [], 1
+    for K in cfg.conv_kernel:
+        convs.append({"kernel": (torch.randn(C, c_in, K, device=device, generator=g)
+                                 * (2.0 / (K * c_in)) ** 0.5).bfloat16()})
+        c_in = C
+    gn = {"scale": 1 + 0.1 * torch.randn(C, device=device, generator=g),
+          "bias": 0.1 * torch.randn(C, device=device, generator=g)}
+    return cfg, {"convs": convs, "group_norm": gn}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,seconds", [(16, 2), (8, 4), (4, 8)],
+                         ids=["b16-2s", "b8-4s", "b4-8s"])
+def test_feature_encoder_kernels_match_the_unfused_route(cuda, monkeypatch, B, seconds):
+    """feature_encoder on the card at wav2vec2-base's geometry: the two
+    kernels (one launch each a call) against the unfused route (cuDNN and
+    the f32 group norm, `front_route` turned off), within the tail's bf16
+    bound; the frame masks equal. No row is shorter than a quarter of
+    the bucket: a row with no valid frame or one has no variance, and
+    its group norm scales conv 0 by rsqrt(eps), about 316, past what a
+    bf16 bound for O(1) activations covers."""
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.models import (
+        wav2vec2 as w2v)
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.ops import (
+        conv_front as cf)
+    cfg, params = _base_extractor(cuda, seed=B)
+    _, _, wave, mask, _ = _front_inputs(cuda, B, seconds, seed=B + 1, short_rows=False)
+    with torch.no_grad():
+        assert w2v.front_route(params, cfg, wave)
+        launches = (cf.conv_front.launches, ct.conv_tail.launches)
+        got, got_mask = w2v.feature_encoder(params, cfg, wave, mask)
+        torch.cuda.synchronize()
+        assert (cf.conv_front.launches, ct.conv_tail.launches) == (
+            launches[0] + 1, launches[1] + 1)
+        monkeypatch.setattr(w2v, "front_route", lambda *a: False)
+        want, want_mask = w2v.feature_encoder(params, cfg, wave, mask)
+        torch.cuda.synchronize()
+        assert (cf.conv_front.launches, ct.conv_tail.launches) == (
+            launches[0] + 1, launches[1] + 1)
+    assert torch.equal(got_mask, want_mask)
+    tol = BF16_TOL["conv_tail"]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_eval_step_on_the_kernels_reads_the_card_back_as_often(cuda, monkeypatch):
+    """A bf16 eval step with the front-end DSP on, at wav2vec2-base's
+    extractor geometry (128 channels): the route launches each kernel once
+    a step and reads the card back as often as the unfused route (the
+    DSP's three gates); its outputs agree within the bf16 bound."""
+    import dataclasses
+
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.eval import (
+        evaluate as ev)
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.models import (
+        model as tm, wav2vec2 as w2v)
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.ops import (
+        conv_front as cf)
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.utils.runtime import (
+        tree_to)
+    cfg = _tiny_eval_config().model
+    cfg = dataclasses.replace(
+        cfg, compute_dtype="bfloat16", frontend_dsp=True,
+        audio=dataclasses.replace(cfg.audio, conv_dim=(128,) * 7,
+                                  conv_stride=(5, 2, 2, 2, 2, 2, 2),
+                                  conv_kernel=(10, 3, 3, 3, 3, 2, 2)))
+    wave, mask = _dsp_batch()
+    rng = np.random.default_rng(0)
+    batch = tree_to({"audio": wave, "audio_mask": mask,
+                     "text_ids": torch.from_numpy(rng.integers(2, 100, (4, 10)).astype(np.int32)),
+                     "text_mask": torch.ones(4, 10)}, cuda)
+    params = tree_to(tm.init_model(cfg, torch.Generator().manual_seed(0), "cpu"), cuda)
+    step = ev.make_eval_step(cfg, device=cuda)
+    step(params, batch)
+    launches = (cf.conv_front.launches, ct.conv_tail.launches)
+    reads = _host_reads(lambda: step(params, batch))
+    got = step(params, batch)
+    assert (cf.conv_front.launches, ct.conv_tail.launches) == (
+        launches[0] + 2, launches[1] + 2)
+    monkeypatch.setattr(w2v, "front_route", lambda *a: False)
+    assert _host_reads(lambda: step(params, batch)) == reads == 3
+    want = step(params, batch)
+    for field, g, w in zip(("logits", "features", "uncertainty"), got, want):
+        torch.testing.assert_close(g.float(), w.float(), rtol=3e-2, atol=3e-2,
+                                   msg=lambda m: f"{field}: {m}")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("Sq,Skv,D,H", [(199, 199, 768, 12), (32, 199, 256, 8),

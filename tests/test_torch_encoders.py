@@ -19,6 +19,7 @@ from multilingual_multimodal_speech_emotion_recognition_tpu.models import (
 from multilingual_multimodal_speech_emotion_recognition_tpu_torch import config as tcfg
 from multilingual_multimodal_speech_emotion_recognition_tpu_torch.models import (
     wav2vec2 as tw, xlmr as tx)
+from multilingual_multimodal_speech_emotion_recognition_tpu_torch.ops import conv_front as tcf
 
 from test_model import tiny_config
 from torch_port_helpers import META, assert_close, bridge, j, perturb, t
@@ -77,8 +78,8 @@ def test_wav2vec2_pieces():
     x = RNG.standard_normal((2, 9, 8)).astype(np.float32)
     fm = np.ones((2, 9), np.float32)
     fm[0, 5:] = 0
-    assert_close(tw.masked_group_norm_per_channel(tp["group_norm"], t(x).transpose(1, 2),
-                                                  t(fm)).transpose(1, 2),
+    assert_close(tcf.masked_group_norm_per_channel(tp["group_norm"], t(x).transpose(1, 2),
+                                                   t(fm)).transpose(1, 2),
                  jw.masked_group_norm_per_channel(jax.tree.map(j, jp["group_norm"]),
                                                   j(x), j(fm)), 1e-5)
 

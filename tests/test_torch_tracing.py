@@ -158,7 +158,8 @@ def test_tracing_restores_the_state_before_it_and_counts_by_name():
     assert after["test.things"] - before.get("test.things", 0) == 4
     assert {k for k in after if k.endswith(".launches")} == {
         "residual_stack.launches", "attentive_stats_pooling.launches",
-        "flash_attention.launches", "conv_tail.launches", "int8_matmul.launches"}
+        "flash_attention.launches", "conv_front.launches", "conv_tail.launches",
+        "int8_matmul.launches"}
 
 
 # -------------------------------------------------------------- tracing on
