@@ -176,8 +176,8 @@ def build_config(args: argparse.Namespace):
 
 def load_pretrained(args: argparse.Namespace) -> Optional[dict]:
     """The Hugging Face state dicts the flags name, as train's `pretrained`
-    (AutoModel resolves Wav2Vec2Model, HubertModel or WavLMModel, and
-    XLMRobertaModel), or None."""
+    (AutoModel resolves Wav2Vec2Model, HubertModel, WavLMModel or
+    Wav2Vec2BertModel, and XLMRobertaModel), or None."""
     names = {"wav2vec2_state": args.wav2vec2_checkpoint, "xlmr_state": args.xlmr_checkpoint}
     if not any(names.values()):
         return None

@@ -4,13 +4,24 @@ ModelConfig, DataConfig and TrainConfig (config.py), Wav2Vec2Config
 and defaults, so a JAX checkpoint's config JSON loads here unchanged, and
 of its audio backbone presets (`AUDIO_BACKBONE_PRESETS`).
 `Config` holds the model, data, train and mesh sections, as the JAX
-package's does."""
+package's does.
+
+Wav2Vec2Config has fields the JAX package's lacks: `backbone` selects the
+audio encoder ("wav2vec2", the family of models/wav2vec2.py, by default;
+"w2v-bert", the conformer of models/w2v_bert.py, which `is_conformer`
+tells), and the conformer's own fields follow it. `to_json` leaves them
+out of a wav2vec2-family config that keeps their defaults, so such a
+config writes the JAX package's JSON, key for key."""
 
 from __future__ import annotations
 
 import dataclasses
 import json
 from typing import Optional, Tuple, Union
+
+
+CONFORMER = "w2v-bert"
+BACKBONES = ("wav2vec2", CONFORMER)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,6 +48,23 @@ class Wav2Vec2Config:
     apply_spec_augment: bool = True
     mask_time_prob: float = 0.05
     mask_time_length: int = 10
+    # the audio encoder: "wav2vec2" (the family above) or "w2v-bert" (the
+    # conformer of models/w2v_bert.py, which reads the fields below and,
+    # of the ones above, the widths, layer count, heads, eps and dropouts)
+    backbone: str = "wav2vec2"
+    conv_depthwise_kernel_size: int = 31     # the conv module's causal depthwise conv
+    left_max_position_embeddings: int = 64   # relative-key distances clamped to
+    right_max_position_embeddings: int = 8   # [-left, right]
+
+    def __post_init__(self):
+        if self.backbone not in BACKBONES:
+            raise NotImplementedError(f"backbone={self.backbone!r}: the port runs "
+                                      f"{' and '.join(map(repr, BACKBONES))}")
+
+    @property
+    def is_conformer(self) -> bool:
+        """w2v-BERT 2.0's conformer (models/w2v_bert.py), not the wav2vec2 family."""
+        return self.backbone == CONFORMER
 
     def feat_extract_output_lengths(self, input_lengths):
         """HF Wav2Vec2Model._get_feat_extract_output_lengths (ints or
@@ -73,11 +101,25 @@ def wavlm_large_audio_config() -> Wav2Vec2Config:
         gated_relpos_bias=True, num_buckets=320, max_bucket_distance=800)
 
 
+def w2v_bert_audio_config() -> Wav2Vec2Config:
+    """facebook/w2v-bert-2.0 (transformers' Wav2Vec2BertConfig defaults):
+    a log-mel fbank of 80 bins stacked in pairs, LN + Linear 160 -> 1024
+    (models/w2v_bert.py's constants), 24 conformer layers (16 heads, FFN
+    4096, swish, relative-key attention clamped to [-64, 8], a causal
+    depthwise conv of 31 taps), eps 1e-5, no dropout, no adapter."""
+    return Wav2Vec2Config(
+        backbone=CONFORMER, hidden_size=1024, num_hidden_layers=24, num_attention_heads=16,
+        intermediate_size=4096, layer_norm_eps=1e-5, hidden_dropout=0.0,
+        attention_dropout=0.0, activation_dropout=0.0, conv_depthwise_kernel_size=31,
+        left_max_position_embeddings=64, right_max_position_embeddings=8)
+
+
 AUDIO_BACKBONE_PRESETS = {
     "wav2vec2-base": Wav2Vec2Config,
     "wav2vec2-large": wav2vec2_large_audio_config,
     "hubert-large": hubert_large_audio_config,
     "wavlm-large": wavlm_large_audio_config,
+    "w2v-bert-2.0": w2v_bert_audio_config,
 }
 
 
@@ -216,8 +258,24 @@ _NESTED = {"model": ModelConfig, "data": DataConfig, "train": TrainConfig,
            "mesh": MeshConfig, "audio": Wav2Vec2Config, "text": XLMRConfig}
 
 
+_CONFORMER_DEFAULTS = {f.name: f.default for f in dataclasses.fields(Wav2Vec2Config)
+                       if f.name in ("backbone", "conv_depthwise_kernel_size",
+                                     "left_max_position_embeddings",
+                                     "right_max_position_embeddings")}
+
+
+def _json_dict(pairs) -> dict:
+    """dataclasses.asdict's dict_factory: a wav2vec2-family audio section
+    without the conformer's fields where they keep their defaults."""
+    d = dict(pairs)
+    if d.get("backbone") == _CONFORMER_DEFAULTS["backbone"]:
+        d = {k: v for k, v in d.items()
+             if k not in _CONFORMER_DEFAULTS or v != _CONFORMER_DEFAULTS[k]}
+    return d
+
+
 def to_json(cfg) -> str:
-    return json.dumps(dataclasses.asdict(cfg), indent=2)
+    return json.dumps(dataclasses.asdict(cfg, dict_factory=_json_dict), indent=2)
 
 
 def _from_dict(cls, d: dict):

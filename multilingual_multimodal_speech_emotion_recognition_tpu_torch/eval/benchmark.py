@@ -152,6 +152,10 @@ def model_gflops_per_utt(model_cfg, *, audio_seconds: float = 4.0,
     lookup); cross-attention, pooling, fusion, classifier heads."""
     a = model_cfg.audio
     x = model_cfg.text
+    if a.is_conformer:
+        raise NotImplementedError(f"backbone={a.backbone!r}: this count is the wav2vec2 "
+                                  f"family's (perfbench/counts/conformer_flops.py counts "
+                                  f"w2v-BERT 2.0)")
 
     # conv extractor over T raw samples (strided 1-D convs)
     T = int(audio_seconds * sample_rate)

@@ -250,7 +250,8 @@ def verify_integration(params: dict, cfg: Config) -> Dict[str, bool]:
     """Component presence, checked on the parameter tree and the API."""
     checks = {}
     p = params
-    checks["audio_encoder"] = "audio_backbone" in p and "convs" in p["audio_backbone"]
+    checks["audio_encoder"] = "audio_backbone" in p and (
+        "convs" in p["audio_backbone"] or cfg.model.audio.is_conformer)
     checks["text_encoder"] = "text_backbone" in p
     checks["adapters"] = "audio_adapter" in p and "text_adapter" in p
     checks["cross_modal_attention"] = "cross" in p

@@ -2,9 +2,11 @@
 
 Counterpart of multilingual_multimodal_speech_emotion_recognition_tpu/
 models/hf_convert.py: the state dicts of `Wav2Vec2Model`, `HubertModel`,
-`WavLMModel` (`wav2vec2_from_hf`) and `XLMRobertaModel` / `RobertaModel`
-(`xlmr_from_hf`) become the trees that models/wav2vec2.py and
-models/xlmr.py read, which is how the reference loads its frozen
+`WavLMModel` (`wav2vec2_from_hf`), `Wav2Vec2BertModel` (w2v-BERT 2.0,
+`w2v_bert_from_hf`; the JAX package has none) and `XLMRobertaModel` /
+`RobertaModel` (`xlmr_from_hf`) become the trees that models/wav2vec2.py,
+models/w2v_bert.py and models/xlmr.py read (`audio_from_hf` picks the
+audio converter by the keys), which is how the reference loads its frozen
 pretrained backbones (`from_pretrained`). The input is any mapping of
 names to torch tensors or numpy arrays (a live module's `state_dict()`,
 or a dict of arrays); transformers is never imported.
@@ -152,6 +154,54 @@ def wav2vec2_from_hf(state_dict: Mapping, num_layers: Optional[int] = None,
     if wavlm:
         params["rel_attn_embed"] = _np(sd["encoder.layers.0.attention.rel_attn_embed.weight"])
     return _tensors(params)
+
+
+def w2v_bert_from_hf(state_dict: Mapping, num_layers: Optional[int] = None) -> dict:
+    """The audio backbone's tree (models/w2v_bert.py) from a
+    Wav2Vec2BertModel state dict without adapter: the pointwise convs'
+    [out, in, 1] weights become [in, out] kernels, the depthwise conv's
+    [C, 1, K] its taps [K, C], each layer's distance embedding stacked."""
+    sd = dict(state_dict)
+    if num_layers is None:
+        num_layers = _count(sd, "encoder.layers.{}.final_layer_norm.weight")
+
+    def layer(i: int) -> dict:
+        pre = f"encoder.layers.{i}"
+        conv = f"{pre}.conv_module"
+        p = {"ffn1_ln": _ln(sd, f"{pre}.ffn1_layer_norm"),
+             "ffn1_in": _lin(sd, f"{pre}.ffn1.intermediate_dense"),
+             "ffn1_out": _lin(sd, f"{pre}.ffn1.output_dense"),
+             "attn_ln": _ln(sd, f"{pre}.self_attn_layer_norm")}
+        for name in ("q", "k", "v", "out"):
+            p[name] = _lin(sd, f"{pre}.self_attn.linear_{name}")
+        p.update({
+            "rel_attn_embed": _np(sd[f"{pre}.self_attn.distance_embedding.weight"]),
+            "conv_ln": _ln(sd, f"{conv}.layer_norm"),
+            "pointwise_in": {"kernel": _np(sd[f"{conv}.pointwise_conv1.weight"])[:, :, 0].T},
+            "depthwise": {"kernel": _np(sd[f"{conv}.depthwise_conv.weight"])[:, 0, :].T},
+            "depthwise_ln": _ln(sd, f"{conv}.depthwise_layer_norm"),
+            "pointwise_out": {"kernel": _np(sd[f"{conv}.pointwise_conv2.weight"])[:, :, 0].T},
+            "ffn2_ln": _ln(sd, f"{pre}.ffn2_layer_norm"),
+            "ffn2_in": _lin(sd, f"{pre}.ffn2.intermediate_dense"),
+            "ffn2_out": _lin(sd, f"{pre}.ffn2.output_dense"),
+            "final_ln": _ln(sd, f"{pre}.final_layer_norm")})
+        return p
+
+    params = {"feat_proj": {"ln": _ln(sd, "feature_projection.layer_norm"),
+                            "proj": _lin(sd, "feature_projection.projection")},
+              "layers": _stack([layer(i) for i in range(num_layers)])}
+    params["masked_spec_embed"] = (
+        _np(sd["masked_spec_embed"]) if "masked_spec_embed" in sd
+        else np.zeros(params["feat_proj"]["proj"]["kernel"].shape[1], np.float32))
+    return _tensors(params)
+
+
+def audio_from_hf(state_dict: Mapping) -> dict:
+    """`w2v_bert_from_hf` for a state dict with a conformer conv module,
+    `wav2vec2_from_hf` otherwise."""
+    if "encoder.layers.0.conv_module.depthwise_conv.weight" in state_dict:
+        return w2v_bert_from_hf(state_dict)
+    return wav2vec2_from_hf(state_dict)
 
 
 def xlmr_from_hf(state_dict: Mapping, num_layers: Optional[int] = None) -> dict:

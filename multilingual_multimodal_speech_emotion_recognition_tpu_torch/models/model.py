@@ -38,6 +38,7 @@ from . import classifier as clf
 from . import cross_attention as cma
 from . import fusion as fusion_mod
 from . import layers
+from . import w2v_bert
 from . import wav2vec2 as w2v
 from . import xlmr as xlmr_mod
 
@@ -79,7 +80,9 @@ def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     init = layers.Init(generator, dev, dtype)
     ah, th = cfg.audio_hidden, cfg.text_hidden
     params = {
-        "audio_backbone": w2v.init_wav2vec2(init, cfg.audio),
+        "audio_backbone": (w2v_bert.init_w2v_bert(init, cfg.audio)
+                           if cfg.audio.is_conformer
+                           else w2v.init_wav2vec2(init, cfg.audio)),
         "audio_adapter": {"down": layers.init_linear(init, ah, cfg.adapter_dim),
                           "up": layers.init_linear(init, cfg.adapter_dim, ah)},
         "text_backbone": xlmr_mod.init_xlmr(init, cfg.text),
@@ -175,10 +178,14 @@ def encode_audio(params: dict, cfg: ModelConfig, wave: Tensor, wave_mask: Tensor
                  generator: Optional[torch.Generator] = None,
                  spec_augment: bool = False, tp=None):
     """[B, T] waveform -> ([B, T', ah] sequence, [B, T'] frame mask); the
-    backbone tensor-parallel under `tp` (a parallel/tensor.ModelGroup)."""
+    backbone (wav2vec2's family or w2v-BERT 2.0's conformer, by
+    `cfg.audio.backbone`) tensor-parallel under `tp` (a
+    parallel/tensor.ModelGroup; the wav2vec2 family only)."""
+    encode = (w2v_bert.w2v_bert_encode if cfg.audio.is_conformer
+              else w2v.wav2vec2_encode)
     with profiling.span("audio_encoder"):
         with _frozen(params["audio_backbone"]):
-            seq, frame_mask = w2v.wav2vec2_encode(
+            seq, frame_mask = encode(
                 params["audio_backbone"], cfg.audio, wave, wave_mask,
                 deterministic=deterministic, generator=generator,
                 spec_augment=spec_augment, remat=cfg.remat_encoders, tp=tp)
@@ -318,14 +325,15 @@ def model_forward(params: dict, cfg: ModelConfig, batch: dict, *,
 
 def load_pretrained_backbones(params: dict, *, wav2vec2_state=None, xlmr_state=None) -> dict:
     """The parameters with their backbones replaced by converted Hugging Face
-    state dicts (models/hf_convert.py; layer and conv counts read from the
-    keys), on the parameters' device. A converted backbone must have the
+    state dicts (models/hf_convert.py; the audio model, a wav2vec2-family
+    one or w2v-BERT 2.0, and the layer and conv counts read from the keys),
+    on the parameters' device. A converted backbone must have the
     configured one's leaves and shapes, or this raises."""
     from . import hf_convert
     from .ref_convert import check_shapes
     device = params["classifier"]["input_proj"]["kernel"].device
     params = dict(params)
-    for name, state, convert in (("audio_backbone", wav2vec2_state, hf_convert.wav2vec2_from_hf),
+    for name, state, convert in (("audio_backbone", wav2vec2_state, hf_convert.audio_from_hf),
                                  ("text_backbone", xlmr_state, hf_convert.xlmr_from_hf)):
         if state is not None:
             tree = convert(state)

@@ -45,6 +45,10 @@ FEAT_EXTRACT_NORMS = ("group", "layer")
 
 
 def check_supported(cfg: Wav2Vec2Config) -> None:
+    if cfg.is_conformer:
+        raise NotImplementedError(
+            f"backbone={cfg.backbone!r}: this path runs the wav2vec2 family only "
+            f"(w2v-BERT 2.0 is models/w2v_bert.py's)")
     if cfg.feat_extract_norm not in FEAT_EXTRACT_NORMS:
         raise NotImplementedError(
             f"feat_extract_norm={cfg.feat_extract_norm!r}: the extractor takes "

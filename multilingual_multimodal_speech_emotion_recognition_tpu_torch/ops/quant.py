@@ -113,12 +113,18 @@ def linear_int8(params: dict, x: Tensor) -> Tensor:
     return y.to(out_dtype)
 
 
+# slots with a "kernel" that is not a product's: w2v-BERT's depthwise taps
+# [L, K, C] (models/w2v_bert.py)
+NOT_PRODUCTS = ("depthwise",)
+
+
 def _walk(node, min_size: int):
     if isinstance(node, dict):
         k = node.get("kernel")
         if k is not None and k.ndim >= 2 and min(k.shape[-2:]) >= min_size:
             return quantize_linear(node)
-        return {key: _walk(v, min_size) for key, v in node.items()}
+        return {key: (v if key in NOT_PRODUCTS else _walk(v, min_size))
+                for key, v in node.items()}
     return node
 
 
@@ -141,10 +147,11 @@ def quantize_whisper(params: dict, *, min_size: int = 512) -> dict:
 def quantize_backbones(params: dict, *,
                        subtrees: Iterable[str] = ("audio_backbone", "text_backbone"),
                        min_size: int = 512) -> dict:
-    """Quantise the encoder layers' matmuls (q/k/v/out/ffn) of both
-    backbones in a model tree; the conv extractor, norms, adapters, heads
-    and the classifier stay float. `min_size` leaves small matrices (WavLM's
-    gate, [L, 64, 8]) float."""
+    """Quantise the encoder layers' matmuls (q/k/v/out/ffn, and w2v-BERT's
+    FFNs and pointwise convs) of both backbones in a model tree; the conv
+    extractor, w2v-BERT's depthwise taps and distance embedding, norms,
+    adapters, heads and the classifier stay float. `min_size` leaves small
+    matrices (WavLM's gate, [L, 64, 8]) float."""
     out = dict(params)
     for key in subtrees:
         if key in out:

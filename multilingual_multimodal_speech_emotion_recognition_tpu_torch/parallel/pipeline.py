@@ -51,6 +51,7 @@ def encoder_stack_pipeline(
     all rows), the layer count by the stage count. WavLM
     (cfg.gated_relpos_bias): pass params["rel_attn_embed"]; the [H, S, S]
     bias is made once and shared (S is not sharded here)."""
+    w2v.check_supported(cfg)
     if (rel_attn_embed is not None) != bool(cfg.gated_relpos_bias):
         raise ValueError("pass rel_attn_embed exactly when cfg.gated_relpos_bias is set")
     B, S, E = h.shape

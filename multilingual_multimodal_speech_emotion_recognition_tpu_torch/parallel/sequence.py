@@ -144,6 +144,7 @@ def encoder_stack_sequence_parallel(
     (`batch_axis` shards the rows; None: every data shard takes them all)
     and the blocks are gathered at the end. WavLM (cfg.gated_relpos_bias):
     pass `rel_attn_embed` (params["rel_attn_embed"], [num_buckets, H])."""
+    w2v.check_supported(cfg)
     if (rel_attn_embed is not None) != bool(cfg.gated_relpos_bias):
         raise ValueError("pass rel_attn_embed exactly when cfg.gated_relpos_bias is set")
     leaves = [h, *(t for t in _flat(stacked))]

@@ -148,6 +148,9 @@ def check_model_axis(cfg, size: int) -> None:
     config.ModelConfig)."""
     if size <= 1:
         return
+    if cfg.audio.is_conformer:
+        raise NotImplementedError(f"backbone={cfg.audio.backbone!r}: the 'model' axis splits "
+                                  f"the wav2vec2 family only")
     a, t = cfg.audio, cfg.text
     dims = (("audio_backbone/layers/q/kernel", "heads", a.num_attention_heads),
             ("audio_backbone/layers/ffn_in/kernel", "columns", a.intermediate_size),

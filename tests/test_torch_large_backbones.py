@@ -11,6 +11,7 @@ places), and within 3e-2 for the model's outputs, as
 tests/test_torch_model.py does. The bucket function is held exactly."""
 
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -65,10 +66,14 @@ def _numpy(tree):
 
 
 def test_presets_match_jax():
-    assert set(tcfg.AUDIO_BACKBONE_PRESETS) == set(jcfg.AUDIO_BACKBONE_PRESETS)
-    for name, make in tcfg.AUDIO_BACKBONE_PRESETS.items():
-        assert dataclasses.asdict(make()) == dataclasses.asdict(
-            jcfg.AUDIO_BACKBONE_PRESETS[name]()), name
+    """The JAX package's presets, field for field as both write them; the
+    port adds w2v-BERT 2.0 (tests/test_torch_w2v_bert.py), which JAX lacks."""
+    assert set(tcfg.AUDIO_BACKBONE_PRESETS) == set(jcfg.AUDIO_BACKBONE_PRESETS) | {"w2v-bert-2.0"}
+    for name, make in jcfg.AUDIO_BACKBONE_PRESETS.items():
+        assert json.loads(tcfg.to_json(tcfg.AUDIO_BACKBONE_PRESETS[name]())) == json.loads(
+            jcfg.to_json(make())), name
+        assert tcfg.Wav2Vec2Config(**dataclasses.asdict(make())) == tcfg.AUDIO_BACKBONE_PRESETS[
+            name](), name
     assert tcfg.hubert_large_audio_config() == tcfg.wav2vec2_large_audio_config()
 
 

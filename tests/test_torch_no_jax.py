@@ -33,7 +33,7 @@ def test_port_imports_without_jax():
     assert report["jax_package"] == []
     port = "multilingual_multimodal_speech_emotion_recognition_tpu_torch."
     for module in ("ops.conv_tail", "ops.flash_attention", "ops.attentive_pooling",
-                   "ops.residual_stack", "models.model", "weights",
+                   "ops.residual_stack", "models.model", "models.w2v_bert", "weights",
                    "ops.audio_dsp", "ops.openmax", "data.manifest", "data.audio_io",
                    "data.native", "data.tokenizer", "data.bucketing", "data.pipeline",
                    "data.prefetch", "utils.metrics", "eval.evaluate", "train.checkpoint",

@@ -200,6 +200,28 @@ def test_a_wavlm_forward_records_its_bucket_table_read_once():
     assert Counter(s[0] for s in spans if s[0].startswith("sync."))["sync.dsp_denoise"] == 1
 
 
+def test_a_w2v_bert_forward_records_its_spans_and_counts_its_frames():
+    cfg = tiny_config(tcfg.AUDIO_BACKBONE_PRESETS["w2v-bert-2.0"]())
+    params = tm.init_model(cfg.model, torch.Generator().manual_seed(1), "cpu")
+    batch = worst_case()
+    S = ((SR - 400) // 160 + 1) // 2
+    before = profiling.counters()
+    spans = recorded_spans(lambda: run_step("plain", cfg, params, batch))
+    after = profiling.counters()
+    assert after["conformer.frames"] - before.get("conformer.frames", 0) == B * S
+    names = Counter(s[0] for s in spans)
+    layers = cfg.model.audio.num_hidden_layers
+    assert (names["audio_encoder.fbank"], names["audio_encoder.conformer"],
+            names["conformer.attention"], names["conformer.conv_module"]) == (1, 1, layers, layers)
+    assert "audio_encoder.conv" not in names
+    for child, parent in (("audio_encoder.fbank", "audio_encoder"),
+                          ("audio_encoder.conformer", "audio_encoder"),
+                          ("conformer.attention", "audio_encoder.conformer"),
+                          ("conformer.conv_module", "audio_encoder.conformer")):
+        for c in (s for s in spans if s[0] == child):
+            assert any(inside(c, p) for p in spans if p[0] == parent), (child, parent)
+
+
 @pytest.mark.parametrize("audio", ["worst_case", "clean"])
 def test_each_gate_counts_its_read_and_whether_its_branch_ran(model, audio):
     """Three reads a forward, one a gate. On the worst case the notch/HPF
