@@ -17,7 +17,12 @@ Phases, one JSON line each:
               group-mode extractor's two kernels (the front, conv 0 + its
               masked group norm + GELU, and A4) at the benchmark's three
               bucket shapes, each against its plain version and the
-              unfused cuDNN chain, and the whole extractor on both routes
+              unfused cuDNN chain, and the whole extractor on both routes;
+              F2 (the grouped positional conv + bias + GELU) at the
+              benchmark's wav2vec2-base and WavLM-Large shapes against its
+              plain chain (flipped roundings in under 1e-3 of the outputs),
+              with cuDNN's F.conv1d on the same shapes as the library
+              yardstick the port never calls
   4. agree    a small model on the card against the same model on the CPU,
               with precomputed front-end features and, on 1 s worst-case /
               speech-like / padded rows, with the front-end DSP (gate
@@ -244,6 +249,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 
@@ -273,10 +279,16 @@ POOLING_SITES = {"pool_a": (199, 768), "pool_t": (TEXT_TOKENS, 768)}  # (S, D)
 POOL_HIDDEN = 128
 L2_FLUSH_BYTES = 128 * 2 ** 20   # written before each flushed launch; the L2 holds 50 MB
 SPIN_CYCLES = 2_000_000          # about 1 ms of the H100's clock: the host gets ahead
-KERNEL_NAMES = ("residual_stack", "conv_front", "conv_tail", "flash_attention",
+KERNEL_NAMES = ("residual_stack", "conv_front", "conv_tail", "pos_conv", "flash_attention",
                 "attentive_pooling")
 EXTRACTOR_BUCKETS = ((512, 2), (256, 4), (128, 8))   # the benchmark's (clips, seconds) a batch
 FRONT_FLIP_SHARE = 1e-3   # the front's outputs a bf16 step off the plain version's: sum order
+# F2's shapes (B, T, C, Cg, K): the flagship's three buckets (wav2vec2-base) and
+# WavLM-Large's 8 s bucket, the benchmark's; its flips are held like the front's
+POS_CONV_SHAPES = {"flagship B=512 2s": (512, 99, 768, 48, 128),
+                   "flagship B=256 4s": (256, 199, 768, 48, 128),
+                   "flagship B=128 8s": (128, 399, 768, 48, 128),
+                   "wavlm-large B=32 8s": (32, 399, 1024, 64, 128)}
 TRAIN_TOL = 1e-4     # card vs CPU train step, f32, TF32 off: summation order only
 TRAIN_LR = 1e-3
 TRAIN_B = 16         # the flagship train step's batch
@@ -692,6 +704,65 @@ def extractor_phase(torch) -> dict:
         del params, wave, mask, samples, x1, feats, want
         torch.cuda.empty_cache()
     return {"C": C, "tol": tol, "buckets": out}
+
+
+def pos_conv_inputs(torch, B: int, T: int, C: int, Cg: int, K: int, seed: int):
+    """F2's inputs: a kernel scaled as the init scales it, a bias, and h
+    [B, T, C] zero past each clip's frames (row 0 all, row 1 none, row 2
+    one, the rest a quarter to all of them), as wav2vec2_encode hands it."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    frames = torch.randint(T // 4, T + 1, (B,), device="cuda", generator=g)
+    frames[:3] = torch.tensor([T, 0, 1], device="cuda")
+    mask = (torch.arange(T, device="cuda")[None, :] < frames[:, None]).float()
+    h = (torch.randn(B, T, C, device="cuda", generator=g) * mask[..., None]).bfloat16()
+    conv = {"kernel": (torch.randn(C, Cg, K, device="cuda", generator=g)
+                       * (4.0 / (K * C)) ** 0.5).bfloat16(),
+            "bias": (0.1 * torch.randn(C, device="cuda", generator=g)).bfloat16()}
+    return conv, h
+
+
+def pos_conv_phase(torch) -> dict:
+    """Phase 3 for F2 at POS_CONV_SHAPES: one launch a call; against the
+    plain chain, the share of outputs whose bf16 rounding flipped (raised
+    at FRONT_FLIP_SHARE) and the largest difference (within the tail's
+    bf16 bound); times against the products' bound, the plain chain and
+    cuDNN's grouped F.conv1d with its bias alone (the library yardstick)."""
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.ops import (
+        pos_conv as pc)
+    out = {}
+    for label, (B, T, C, Cg, K) in POS_CONV_SHAPES.items():
+        conv, h = pos_conv_inputs(torch, B, T, C, Cg, K, seed=B + T)
+        with torch.no_grad():
+            before = pc.pos_conv.launches
+            got = pc.pos_conv(conv, h)
+            torch.cuda.synchronize()
+            if pc.pos_conv.launches != before + 1:
+                raise AssertionError(f"pos_conv {label}: one launch expected")
+            want = pc.pos_conv_plain(conv, h)
+            flipped = got != want
+            share = float(flipped.float().mean())
+            if share >= FRONT_FLIP_SHARE:
+                raise AssertionError(f"pos_conv {label}: {share} of the outputs differ from "
+                                     f"the plain chain's, not under {FRONT_FLIP_SHARE}")
+            err = check_close(f"pos_conv {label}", got, want, BF16_TOL["conv_tail"])
+            del want, flipped
+            x = h.transpose(1, 2)
+            flops = 2.0 * B * T * C * Cg * K
+            bound_ms, bound_by = bound(2 * (2 * B * T * C + C * Cg * K + C),
+                                       flops / H100_BF16_FLOPS)
+            ms = cuda_ms(lambda: pc.pos_conv(conv, h), 20)
+            out[label] = {
+                "B": B, "T": T, "C": C, "Cg": Cg, "K": K, "ms": ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "ms_over_bound": ms / bound_ms,
+                "tflop_per_s": flops / ms / 1e9,
+                "plain_ms": cuda_ms(lambda: pc.pos_conv_plain(conv, h), 3, warmup=1),
+                "library_ms": cuda_ms(lambda: torch.nn.functional.conv1d(
+                    x, conv["kernel"], conv["bias"], padding=K // 2, groups=C // Cg), 3,
+                    warmup=1),
+                "max_abs_err": err, "flipped_share": share}
+        del conv, h, got, x
+        torch.cuda.empty_cache()
+    return {"tol": BF16_TOL["conv_tail"], "flip_share_limit": FRONT_FLIP_SHARE, "shapes": out}
 
 
 def attention_inputs(torch, B: int, Sq: int, Skv: int, D: int, dtype, seed: int):
@@ -1755,9 +1826,10 @@ def large_backbone_phases(torch, wrappers, smi: str, work: Path, manifest: str) 
                 raise AssertionError(f"{preset} B={B}: residual_stack launched "
                                      f"{count['residual_stack']} times in {requests} forwards")
             launches["residual_stack"] += count["residual_stack"]
-            # the large presets' layer-norm extractor keeps the unfused path
+            # the large presets' layer-norm extractor keeps the unfused path;
+            # their positional conv (Cg = 64) takes F2
             expect_extractor(count, requests if preset == "wav2vec2-base" else 0,
-                             f"{preset} B={B}")
+                             f"{preset} B={B}", pos_conv=requests)
             if tuple(logits.shape) != (B, cfg.num_labels):
                 raise AssertionError(f"{preset} B={B}: logits {tuple(logits.shape)}")
             for field, v in zip(out._fields, out):
@@ -2967,8 +3039,10 @@ def parallel_phases(torch, wrappers, smi: str, cfg, work: Path, manifest: str) -
                                  f"{count['residual_stack']} times, not 2 passes x "
                                  f"{val_steps} steps")
         a1 += count["residual_stack"]
+        # under the pod branch the forwards take the mesh's ModelGroup: the
+        # positional conv keeps the plain chain
         expect_extractor(count, count["residual_stack"] + train_steps,
-                         "train CLI under the pod branch")
+                         "train CLI under the pod branch", pos_conv=0)
         emit({"phase": "path", "path": "train CLI under the pod branch (world 1, --fsdp, "
               "1 epoch, batch 8, --use_amp)", "card": smi, "backend": backend,
               "cli_s": cli_s, "epoch_s": res["history"][0]["seconds"],
@@ -3197,10 +3271,10 @@ def tp_worker(rank: int, port: int, work: Path) -> int:
     from multilingual_multimodal_speech_emotion_recognition_tpu_torch.models import (
         model as mdl)
     from multilingual_multimodal_speech_emotion_recognition_tpu_torch.ops import (
-        conv_front as cf, conv_tail as ct, residual_stack as rs)
+        conv_front as cf, conv_tail as ct, pos_conv as pc, residual_stack as rs)
     from multilingual_multimodal_speech_emotion_recognition_tpu_torch.parallel import (
         mesh as mesh_lib, tensor)
-    kernels = {"conv_front": cf.conv_front, "conv_tail": ct.conv_tail}
+    kernels = {"conv_front": cf.conv_front, "conv_tail": ct.conv_tail, "pos_conv": pc.pos_conv}
     from multilingual_multimodal_speech_emotion_recognition_tpu_torch.train import (
         optimizer as opt_lib, train_step as ts)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3336,7 +3410,8 @@ def tensor_parallel_phases(torch, wrappers, smi: str, cfg, work: Path) -> int:
         count = counts(wrappers)["residual_stack"]
         if count != 2:
             raise AssertionError(f"12a: residual_stack launched {count} times in 2 forwards")
-        expect_extractor(counts(wrappers), 2, "12a: forwards on a (1, 1) mesh and unsharded")
+        expect_extractor(counts(wrappers), 2, "12a: forwards on a (1, 1) mesh and unsharded",
+                         pos_conv=1)   # the unsharded forward's: F2 takes no ModelGroup
         a1 += count
         tcfg = TrainConfig(batch_size=TRAIN_B, augment=True)
         opt = opt_lib.make_train_optimizer(params, lr=TRAIN_LR, total_steps=100)
@@ -3452,7 +3527,8 @@ def tensor_parallel_phases(torch, wrappers, smi: str, cfg, work: Path) -> int:
         raise AssertionError(f"12b: residual_stack launched {ranks[0]['forward']['launches']} "
                              f"times in {TP_FORWARDS} forwards")
     for r, rank in enumerate(ranks):   # the extractor is replicated: every rank runs it
-        expect_extractor(rank["forward"]["extractor"], TP_FORWARDS, f"12b rank {r}")
+        expect_extractor(rank["forward"]["extractor"], TP_FORWARDS, f"12b rank {r}",
+                         pos_conv=0)
     emit({"phase": "path", "path": "tensor parallel, two gloo ranks on one card, mesh (1, 2), "
           "vs one process", "card": smi, "B": TP_B, "train_B": TRAIN_B,
           "seconds": CLIP_SAMPLES / SAMPLE_RATE, "text_tokens": TEXT_TOKENS,
@@ -3514,7 +3590,8 @@ def tensor_parallel_phases(torch, wrappers, smi: str, cfg, work: Path) -> int:
                              f"{want_a1} eval forwards a rank")
     a1 += acad[0]["launches"]
     for r, a in enumerate(acad):
-        expect_extractor(a["extractor"], a["launches"] + a["adapt_steps"], f"12c rank {r}")
+        expect_extractor(a["extractor"], a["launches"] + a["adapt_steps"], f"12c rank {r}",
+                         pos_conv=0)
     emit({"phase": "path", "path": "academic_eval CLI on two gloo ranks on one card, mesh "
           "(2, 1), vs 10c's one process", "card": smi, "clips": MANIFEST_CLIPS,
           "batch_size": 8, "args": " ".join(ACADEMIC_ARGS), "cli_s": acad[0]["seconds"],
@@ -3545,20 +3622,30 @@ def counts(wrappers) -> dict:
     return {name: w.launches for name, w in wrappers.items()}
 
 
-# The group-mode extractor's launches on the model paths: each of the front
-# and A4 once in every forward of a wav2vec2-base extractor on the card in
-# bf16 with no gradient recorded, and in no other. A path that counts
-# otherwise is kept and raised at the end, so that one run names them all.
-EXTRACTOR = {"conv_front": 0, "conv_tail": 0, "faults": []}
+# The audio encoder's kernels' launches on the model paths: each of the
+# group-mode extractor's front and A4 once in every forward of a
+# wav2vec2-base extractor on the card in bf16 with no gradient recorded, and
+# F2 (pos_conv) once in every such forward of a wav2vec2-family encoder
+# (base, large, WavLM, the small student) without tensor parallelism; in no
+# other. A path that counts otherwise is kept and raised at the end, so that
+# one run names them all.
+EXTRACTOR = {"conv_front": 0, "conv_tail": 0, "pos_conv": 0, "faults": []}
 
 
-def expect_extractor(count: dict, want: int, what: str) -> None:
+def expect_extractor(count: dict, want: int, what: str, pos_conv: Optional[int] = None) -> None:
+    """`want` launches of the front and A4 in `count`, and `pos_conv` of F2
+    (`want` where not given: every wav2vec2-base forward takes all three)."""
     got = (count["conv_front"], count["conv_tail"])
     if got != (want, want):
         EXTRACTOR["faults"].append(f"{what}: conv_front and conv_tail launched {got[0]} and "
                                    f"{got[1]} times, not {want} each")
+    want_pos = want if pos_conv is None else pos_conv
+    if count["pos_conv"] != want_pos:
+        EXTRACTOR["faults"].append(f"{what}: pos_conv launched {count['pos_conv']} times, "
+                                   f"not {want_pos}")
     EXTRACTOR["conv_front"] += got[0]
     EXTRACTOR["conv_tail"] += got[1]
+    EXTRACTOR["pos_conv"] += count["pos_conv"]
 
 
 def main() -> int:
@@ -3574,9 +3661,10 @@ def main() -> int:
         layers, model as mdl, wav2vec2 as w2v)
     from multilingual_multimodal_speech_emotion_recognition_tpu_torch.ops import (
         _build, attentive_pooling as ap, conv_front as cf, conv_tail as ct,
-        flash_attention as fa, residual_stack as rs)
+        flash_attention as fa, pos_conv as pc, residual_stack as rs)
     wrappers = {"residual_stack": rs.residual_stack, "conv_front": cf.conv_front,
-                "conv_tail": ct.conv_tail, "flash_attention": fa.flash_attention,
+                "conv_tail": ct.conv_tail, "pos_conv": pc.pos_conv,
+                "flash_attention": fa.flash_attention,
                 "attentive_pooling": ap.attentive_stats_pooling}
     bf16 = torch.bfloat16
 
@@ -3596,7 +3684,7 @@ def main() -> int:
     # 2. build
     t0 = time.perf_counter()
     _build.build_all(KERNEL_NAMES)
-    for module in (rs, cf, ct, fa, ap):
+    for module in (rs, cf, ct, pc, fa, ap):
         module.build()
     emit({"phase": "build", "kernels": list(KERNEL_NAMES),
           "seconds": time.perf_counter() - t0,
@@ -3685,6 +3773,10 @@ def main() -> int:
     # 3b'. the group-mode extractor's two kernels at the benchmark's buckets
     extractor = extractor_phase(torch)
     emit({"phase": "kernel", "name": "conv_front + conv_tail", **extractor})
+
+    # 3b''. F2: the positional conv at the benchmark's shapes
+    pos = pos_conv_phase(torch)
+    emit({"phase": "kernel", "name": "pos_conv", **pos})
 
     # 3c. A3: masked flash attention at the flagship's attention sites
     attn = {"max_abs_err": {}, "timing": {}}
@@ -4098,7 +4190,7 @@ def main() -> int:
         shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()
 
-    main_path = {k: EXTRACTOR[k] for k in ("conv_front", "conv_tail")}
+    main_path = {k: EXTRACTOR[k] for k in ("conv_front", "conv_tail", "pos_conv")}
     for kname, n in main_path.items():
         launches[kname] += n
     for kname, n in launches.items():
@@ -4136,6 +4228,14 @@ def main() -> int:
          "tol": BF16_TOL["conv_tail"], "library_ms": None, "buckets": {
              k: {"front": b["front"], "tail": b["tail"], "feature_encoder": b["feature_encoder"]}
              for k, b in extractor["buckets"].items()}},
+        {"name": "pos_conv", "route": "cuda", "source": SOURCE.format("pos_conv"),
+         "replaces": None, "launches": launches["pos_conv"],
+         "model_path_launches": main_path["pos_conv"],
+         "max_abs_err": max(b["max_abs_err"] for b in pos["shapes"].values()),
+         "flipped_share": max(b["flipped_share"] for b in pos["shapes"].values()),
+         **{k: v for k, v in pos["shapes"]["flagship B=256 4s"].items()
+            if k in ("ms", "bound_ms", "bound_by", "ms_over_bound", "plain_ms", "library_ms")},
+         "shapes": pos["shapes"]},
         {"name": "flash_attention", "route": "cuda", "source": SOURCE.format("flash_attention"),
          "replaces": REPLACES.format(295), "launches": launches["flash_attention"],
          "max_abs_err": max(attn["max_abs_err"].values()), "tol": BF16_TOL["attention"],

@@ -33,7 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import Wav2Vec2Config
-from ..ops import conv_front, conv_tail
+from ..ops import conv_front, conv_tail, pos_conv
 from ..utils import profiling
 from ..utils.runtime import export_safe_cache
 from . import layers, remat as remat_lib
@@ -301,25 +301,38 @@ def _encoder_stack(stacked: dict, cfg: Wav2Vec2Config, h: Tensor, attn_bias: Ten
         deterministic=deterministic, remat=remat, tp=tp)
 
 
+def pos_conv_route(params: dict, cfg: Wav2Vec2Config, h: Tensor, tp=None) -> bool:
+    """Whether `_positional_conv` runs on the kernel (ops/pos_conv): a CUDA
+    bf16 h, no tensor parallelism, the kernel's shape (C / groups channels
+    a group in ops/pos_conv.GROUP_CHANNELS, an even K) and no gradient
+    recorded for the conv (the kernel has no backward)."""
+    if not (h.is_cuda and h.dtype == torch.bfloat16 and tp is None
+            and pos_conv.pos_conv_supported(h.shape[-1] // cfg.num_conv_pos_embedding_groups,
+                                            cfg.num_conv_pos_embeddings)):
+        return False
+    leaves = [h, *params["pos_conv"].values()]
+    return not (torch.is_grad_enabled() and any(t.requires_grad for t in leaves))
+
+
 def _positional_conv(params: dict, cfg: Wav2Vec2Config, h: Tensor, tp=None) -> Tensor:
-    """GELU of the grouped positional conv of h [B, T, C], [B, T, C]. Under
+    """GELU of the grouped positional conv of h [B, T, C], [B, T, C]: on
+    the kernel where `pos_conv_route` holds, else the plain chain. Under
     `tp` (a parallel/tensor.ModelGroup) this rank convolves its groups alone
     (its output channels are its shard of the kernel, and a group reads its
     own channels of h), then the channels are gathered over the group."""
-    G, K = cfg.num_conv_pos_embedding_groups, cfg.num_conv_pos_embeddings
-    x, conv, groups = h.transpose(1, 2), params["pos_conv"], G
-    if tp is not None:
-        from ..parallel import tensor as tpl
-        g_lo, g_hi = tp.span(G, "pos_conv groups")
-        per = h.shape[-1] // G
-        span = (g_lo * per, g_hi * per)
-        x = tpl.local_part(x, 1, span, tp)
-        conv = {**conv, "bias": tpl.local_part(conv["bias"], 0, span, tp)}
-        groups = g_hi - g_lo
-    pos = layers.conv1d(conv, x, 1, groups=groups, padding=K // 2)
-    # an even kernel with padding k//2 gives T+1 frames: keep the first T
-    pos = layers.gelu(pos[:, :, : h.shape[1]].transpose(1, 2))
-    return pos if tp is None else tpl.gather_from_model(pos, 2, tp)
+    conv = params["pos_conv"]
+    if pos_conv_route(params, cfg, h, tp):
+        return pos_conv.pos_conv(conv, h)
+    if tp is None:
+        return pos_conv.pos_conv_plain(conv, h)
+    from ..parallel import tensor as tpl
+    G = cfg.num_conv_pos_embedding_groups
+    g_lo, g_hi = tp.span(G, "pos_conv groups")
+    per = h.shape[-1] // G
+    span = (g_lo * per, g_hi * per)
+    x = tpl.local_part(h, 2, span, tp)
+    conv = {**conv, "bias": tpl.local_part(conv["bias"], 0, span, tp)}
+    return tpl.gather_from_model(pos_conv.pos_conv_plain(conv, x), 2, tp)
 
 
 def wav2vec2_encode(params: dict, cfg: Wav2Vec2Config, wave: Tensor,

@@ -27,7 +27,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LINK_FLAGS = {"attentive_pooling": ("-lcuda",), "conv_tail": ("-lcuda",),
-              "residual_stack": ("-lcuda",)}
+              "pos_conv": ("-lcuda",), "residual_stack": ("-lcuda",)}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 

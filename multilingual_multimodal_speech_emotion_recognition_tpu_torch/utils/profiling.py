@@ -80,13 +80,13 @@ def counters() -> Dict[str, int]:
     """A snapshot of the named counters and the hand-written kernels'
     `.launches`, by name; callers take the difference of two."""
     # imported here: the kernels' modules import the models, which import this one
-    from ..ops import (attentive_pooling, conv_front, conv_tail, flash_attention, quant,
-                       residual_stack)
+    from ..ops import (attentive_pooling, conv_front, conv_tail, flash_attention, pos_conv,
+                       quant, residual_stack)
     with _TRACING.lock:
         snap = dict(_TRACING.counts)
     for fn in (residual_stack.residual_stack, attentive_pooling.attentive_stats_pooling,
                flash_attention.flash_attention, conv_front.conv_front, conv_tail.conv_tail,
-               quant.int8_matmul):
+               pos_conv.pos_conv, quant.int8_matmul):
         snap[f"{fn.__name__}.launches"] = fn.launches
     return snap
 

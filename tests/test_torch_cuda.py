@@ -390,6 +390,147 @@ def test_eval_step_on_the_kernels_reads_the_card_back_as_often(cuda, monkeypatch
                                    msg=lambda m: f"{field}: {m}")
 
 
+# (B, T, C, Cg, K): the flagship's three buckets (wav2vec2-base), WavLM-Large's
+# 8 s bucket and the small student at 4 s
+POS_CONV_SHAPES = {"b512-t99": (512, 99, 768, 48, 128), "b256-t199": (256, 199, 768, 48, 128),
+                   "b128-t399": (128, 399, 768, 48, 128),
+                   "wavlm-b32-t399": (32, 399, 1024, 64, 128),
+                   "student-b16-t199": (16, 199, 384, 48, 64)}
+POS_CONV_FLIP_SHARE = 1e-3   # outputs a bf16 step off the plain chain's: sum order
+
+
+def _pos_conv_inputs(device, B, T, C, Cg, K, seed=0):
+    """A kernel scaled as the init scales it, a bias, and h [B, T, C] zero
+    past each clip's frames: row 0 at the bucket's T, row 1 with none,
+    row 2 with one, the rest uniform in a quarter to all of it."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    frames = torch.randint(T // 4, T + 1, (B,), device=device, generator=g)
+    frames[:3] = torch.tensor([T, 0, 1], device=device)
+    mask = (torch.arange(T, device=device)[None, :] < frames[:, None]).float()
+    h = (torch.randn(B, T, C, device=device, generator=g) * mask[..., None]).bfloat16()
+    conv = {"kernel": (torch.randn(C, Cg, K, device=device, generator=g)
+                       * (4.0 / (K * C)) ** 0.5).bfloat16(),
+            "bias": (0.1 * torch.randn(C, device=device, generator=g)).bfloat16()}
+    return conv, h
+
+
+def _conv_product(conv, h):
+    """The plain chain's conv product, before its bias, rounded to bf16:
+    [B, T, C]."""
+    K = conv["kernel"].shape[-1]
+    c = torch.nn.functional.conv1d(h.transpose(1, 2), conv["kernel"], padding=K // 2,
+                                   groups=h.shape[-1] // conv["kernel"].shape[1])
+    return c[:, :, : h.shape[1]].transpose(1, 2)
+
+
+# How far F2's f32 product may sit from cuDNN's: two sums of 6144 bf16
+# products in other orders, at partial sums of O(1), differ by up to a few
+# 1e-6 (an H100 read 4e-6); 2**-16 is about 4x that.
+POS_CONV_SUM_ORDER = 2.0 ** -16
+GELU_MIN = -0.7517915   # tanh GELU's minimum: it is monotone above
+
+
+def _pos_conv_flips_explained(got, product, bias):
+    """Where F2's output `got` is the plain chain's bias add and GELU of a
+    bf16 product within one bf16 step plus POS_CONV_SUM_ORDER of the plain
+    chain's `product`: between the chain's outputs at the window's two ends
+    (every rounding and the GELU above its minimum are monotone)."""
+    p = product.float()
+    step = torch.where(p != 0, torch.exp2(torch.floor(torch.log2(p.abs())) - 7),
+                       torch.zeros_like(p))
+    ends = [(p + s * (step + POS_CONV_SUM_ORDER)).bfloat16() for s in (-1, 1)]
+    z = [e + bias for e in ends]                         # bf16 adds, rounded
+    out = [tl.gelu(e).float() for e in z]
+    lo, hi = torch.minimum(*out), torch.maximum(*out)
+    lo = torch.where((z[0] <= GELU_MIN) & (z[1] >= GELU_MIN),
+                     tl.gelu(torch.full_like(z[0], GELU_MIN)).float(), lo)
+    return (got.float() >= lo) & (got.float() <= hi)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(POS_CONV_SHAPES))
+def test_pos_conv_kernel_matches_plain(cuda, shape):
+    """F2 against its plain chain at the benchmark's shapes: the same
+    rounding points, so an output differs only where the f32 sum in
+    another order moves the product (by one bf16 step where it is large,
+    by a few 1e-6 where it is small) and the bias add and GELU round that
+    product the other way: every flipped output is the chain's output of
+    such a product, and flips are under POS_CONV_FLIP_SHARE of the
+    outputs. One launch a call."""
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.ops import (
+        pos_conv as pc)
+    B, T, C, Cg, K = POS_CONV_SHAPES[shape]
+    conv, h = _pos_conv_inputs(cuda, B, T, C, Cg, K, seed=B + T)
+    before = pc.pos_conv.launches
+    with torch.no_grad():
+        got = pc.pos_conv(conv, h)
+        torch.cuda.synchronize()
+        assert pc.pos_conv.launches == before + 1
+        assert got.is_contiguous() and got.dtype == torch.bfloat16 and got.shape == h.shape
+        want = pc.pos_conv_plain(conv, h)
+        tol = BF16_TOL["conv_tail"]
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+        flipped = got != want
+        share = float(flipped.float().mean())
+        assert share < POS_CONV_FLIP_SHARE, share
+        explained = _pos_conv_flips_explained(got[flipped], _conv_product(conv, h)[flipped],
+                                              conv["bias"].expand_as(h)[flipped])
+        assert bool(explained.all()), f"{int((~explained).sum())} of {explained.numel()} flips"
+
+
+def _pos_conv_f64(conv, h):
+    """The chain's rounding points (the product rounded to bf16, the bias
+    add rounded, the tanh GELU rounded) with every sum and product in f64."""
+    K = conv["kernel"].shape[-1]
+    c = torch.nn.functional.conv1d(h.double().transpose(1, 2), conv["kernel"].double(),
+                                   padding=K // 2,
+                                   groups=h.shape[-1] // conv["kernel"].shape[1])
+    c = c[:, :, : h.shape[1]].transpose(1, 2).bfloat16().double()
+    z = (c + conv["bias"].double()).bfloat16().double()
+    return (0.5 * z * (1 + torch.tanh((2 / torch.pi) ** 0.5 * (z + 0.044715 * z ** 3)))
+            ).bfloat16()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(POS_CONV_SHAPES))
+def test_pos_conv_kernel_is_as_near_f64_as_plain(cuda, shape):
+    """Against the same rounding points computed in f64, F2 is off on at
+    most 1.25x as many outputs as its plain chain (each sums in f32, in
+    its own order): a rounding point moved, dropped or computed otherwise
+    would set it off on many more. 32 rows a shape."""
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.ops import (
+        pos_conv as pc)
+    B, T, C, Cg, K = POS_CONV_SHAPES[shape]
+    conv, h = _pos_conv_inputs(cuda, B, T, C, Cg, K, seed=B + T)
+    rows = torch.arange(3, min(B, 35), device=cuda)
+    with torch.no_grad():
+        got = pc.pos_conv(conv, h)[rows]
+        want = _pos_conv_f64(conv, h[rows])
+        off = {"kernel": int((got != want).sum()),
+               "plain": int((pc.pos_conv_plain(conv, h[rows]) != want).sum())}
+    assert off["plain"] > 0 and off["kernel"] <= 1.25 * off["plain"], off
+
+
+@pytest.mark.cuda
+def test_pos_conv_kernel_rejects_what_it_does_not_take(cuda):
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.ops import (
+        pos_conv as pc)
+    conv, h = _pos_conv_inputs(cuda, 4, 40, 96, 48, 16)
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="bf16"):
+            pc.pos_conv(conv, h.float())
+        with pytest.raises(ValueError, match="contiguous"):
+            pc.pos_conv(conv, h.transpose(0, 1))
+        with pytest.raises(ValueError, match="even K"):
+            pc.pos_conv({"kernel": conv["kernel"][..., :15], "bias": conv["bias"]}, h)
+        narrow, hn = _pos_conv_inputs(cuda, 4, 40, 64, 16, 16)
+        with pytest.raises(ValueError, match="Cg in"):
+            pc.pos_conv(narrow, hn)
+    kernel = {"kernel": conv["kernel"].clone().requires_grad_(), "bias": conv["bias"]}
+    with pytest.raises(RuntimeError, match="no backward"):
+        pc.pos_conv(kernel, h)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("Sq,Skv,D,H", [(199, 199, 768, 12), (32, 199, 256, 8),

@@ -159,7 +159,7 @@ def test_tracing_restores_the_state_before_it_and_counts_by_name():
     assert {k for k in after if k.endswith(".launches")} == {
         "residual_stack.launches", "attentive_stats_pooling.launches",
         "flash_attention.launches", "conv_front.launches", "conv_tail.launches",
-        "int8_matmul.launches"}
+        "pos_conv.launches", "int8_matmul.launches"}
 
 
 # -------------------------------------------------------------- tracing on
