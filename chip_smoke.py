@@ -641,12 +641,11 @@ def extractor_phase(torch) -> dict:
         conv0, gn = params["convs"][0], params["group_norm"]
         T = seconds * SAMPLE_RATE
         with torch.no_grad():
-            before = (cf.conv_front.launches, ct.conv_tail.launches)
+            reset_counts()
             x1 = cf.conv_front(conv0, gn, wave, samples, 5)
             x7 = ct.conv_tail(params["convs"], x1, has_ln=False)
             torch.cuda.synchronize()
-            if (cf.conv_front.launches, ct.conv_tail.launches) != (before[0] + 1,
-                                                                   before[1] + 1):
+            if (counts()["conv_front"], counts()["conv_tail"]) != (1, 1):
                 raise AssertionError(f"extractor B={B}: one launch of each kernel expected")
             front_err, flipped = 0.0, 0
             for rows in torch.arange(B, device="cuda").split(32):
@@ -733,10 +732,10 @@ def pos_conv_phase(torch) -> dict:
     for label, (B, T, C, Cg, K) in POS_CONV_SHAPES.items():
         conv, h = pos_conv_inputs(torch, B, T, C, Cg, K, seed=B + T)
         with torch.no_grad():
-            before = pc.pos_conv.launches
+            reset_counts()
             got = pc.pos_conv(conv, h)
             torch.cuda.synchronize()
-            if pc.pos_conv.launches != before + 1:
+            if counts()["pos_conv"] != 1:
                 raise AssertionError(f"pos_conv {label}: one launch expected")
             want = pc.pos_conv_plain(conv, h)
             flipped = got != want
@@ -999,7 +998,7 @@ def train_card_against_cpu(torch, small: dict) -> dict:
     return errs
 
 
-def train_phases(torch, wrappers, smi: str, cfg, small: dict, work: Path, manifest: str) -> int:
+def train_phases(torch, smi: str, cfg, small: dict, work: Path, manifest: str) -> int:
     """Phase 6 (see the module docstring). Returns A1's launches on the
     paths it drives (the train CLI's validation and Weibull-fit passes, the
     eval CLI's steps)."""
@@ -1046,7 +1045,7 @@ def train_phases(torch, wrappers, smi: str, cfg, small: dict, work: Path, manife
             seed += 1
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        reset_counts(wrappers)
+        reset_counts()
         times = []
         for _ in range(TRAIN_STEPS):
             t0 = time.perf_counter()
@@ -1056,7 +1055,7 @@ def train_phases(torch, wrappers, smi: str, cfg, small: dict, work: Path, manife
             seed += 1
         metrics, reads = host_reads(torch, lambda: step(params, state, batch, seed))
         seed += 1
-        count = counts(wrappers)
+        count = counts()
         peak = torch.cuda.max_memory_allocated()
         values = {k: float(v) for k, v in metrics._asdict().items()}
         if not all(np.isfinite(v) for v in values.values()):
@@ -1098,14 +1097,14 @@ def train_phases(torch, wrappers, smi: str, cfg, small: dict, work: Path, manife
     batch = {k: torch.from_numpy(v).cuda() for k, v in zero_feats.items()}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_counts(wrappers)
+    reset_counts()
     times = []
     for i in range(UNFROZEN_STEPS):
         t0 = time.perf_counter()
         metrics = step(params, state, batch, 100 + i)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-    count = counts(wrappers)
+    count = counts()
     peak = torch.cuda.max_memory_allocated()
     moved = sum(not torch.equal(t, dict(tree_leaves(params))[p]) for p, t in tree_leaves(frozen))
     if not np.isfinite(float(metrics.loss)) or not moved or count["residual_stack"]:
@@ -1137,11 +1136,11 @@ def train_phases(torch, wrappers, smi: str, cfg, small: dict, work: Path, manife
         drop_remainder=True).batches_per_epoch()
     a1 = 0
     torch.cuda.reset_peak_memory_stats()
-    reset_counts(wrappers)
+    reset_counts()
     t0 = time.perf_counter()
     res = train_cli.main(args)
     cli_s = time.perf_counter() - t0
-    count = counts(wrappers)
+    count = counts()
     peak = torch.cuda.max_memory_allocated()
     history = res["history"]
     del res
@@ -1184,11 +1183,11 @@ def train_phases(torch, wrappers, smi: str, cfg, small: dict, work: Path, manife
           "weibull_alpha": weibull["alpha"].tolist(), "weibull_beta": weibull["beta"].tolist(),
           "val_steps": val_steps, "launches": count, "max_memory_allocated": peak})
 
-    reset_counts(wrappers)
+    reset_counts()
     t0 = time.perf_counter()
     res = train_cli.main(args + ["--resume_from", str(epochs[0])])
     resume_s = time.perf_counter() - t0
-    count = counts(wrappers)
+    count = counts()
     resumed = res["history"]
     del res
     torch.cuda.empty_cache()
@@ -1204,11 +1203,11 @@ def train_phases(torch, wrappers, smi: str, cfg, small: dict, work: Path, manife
           "straight_val_f1": history[1]["val_f1"], "train_loss": resumed[0]["train_loss"],
           "straight_train_loss": history[1]["train_loss"], "launches": count})
 
-    reset_counts(wrappers)
+    reset_counts()
     t0 = time.perf_counter()
     res = eval_cli.main(["--manifest", manifest, "--checkpoint", str(best), "--batch_size", "8"])
     eval_s = time.perf_counter() - t0
-    count = counts(wrappers)
+    count = counts()
     if (res["logits"].shape != (MANIFEST_CLIPS, cfg.num_labels)
             or not np.isfinite(res["logits"]).all()
             or count["residual_stack"] != len(res["step_seconds"])):
@@ -1308,7 +1307,7 @@ def artifact_bytes(path: Path) -> int:
     return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
 
 
-def serve_phases(torch, wrappers, smi: str, cfg, work: Path, *, device: str = "cuda",
+def serve_phases(torch, smi: str, cfg, work: Path, *, device: str = "cuda",
                  buckets: str = SERVE_BUCKETS, clip_seconds=SERVE_CLIP_SECONDS,
                  requests: int = SERVE_REQUESTS, clients: int = SERVE_CLIENTS,
                  float_requests: int = FLOAT_REQUESTS,
@@ -1339,7 +1338,7 @@ def serve_phases(torch, wrappers, smi: str, cfg, work: Path, *, device: str = "c
     def extractor(want: int, what: str) -> None:
         # every predict and forward here runs a wav2vec2-base extractor in bf16
         # with no gradient: the kernels, on the card only
-        expect_extractor(counts(wrappers), want if cuda else 0, f"serve: {what}")
+        expect_extractor(counts(), want if cuda else 0, f"serve: {what}")
     tok = tokenizer.HashTokenizer(cfg.text.vocab_size)
     (s0, b0), (s1, b1) = [(float(a), int(b)) for a, b in
                           (pair.split(":") for pair in buckets.split(","))]
@@ -1399,10 +1398,10 @@ def serve_phases(torch, wrappers, smi: str, cfg, work: Path, *, device: str = "c
         if (kind == "worst_case") != all(fired[f] > 0 for f in heavy) or (
                 kind == "speech_like" and any(fired[f] for f in heavy)):
             raise AssertionError(f"serve {kind}: the gates took {fired}")
-        reset_counts(wrappers)
+        reset_counts()
         got = served.predict(batch)
         extractor(1, f"{kind}, one predict")
-        count = counts(wrappers)["residual_stack"]
+        count = counts()["residual_stack"]
         if count != 1:
             raise AssertionError(f"serve {kind}: one predict launched A1 {count} times")
         a1 += count
@@ -1415,16 +1414,16 @@ def serve_phases(torch, wrappers, smi: str, cfg, work: Path, *, device: str = "c
                 raise AssertionError(f"serve {kind}: {k} is not finite")
         if max(diff.values()) > AGREE_TOL[cfg.compute_dtype]:
             raise AssertionError(f"serve {kind}: exported vs eager {diff}")
-        reset_counts(wrappers)
+        reset_counts()
         wire = served_i16.predict({**{k: batch[k] for k in batch if k not in
                                       ("audio", "audio_mask")}, "audio": pcm, "audio_len": lens})
-        a1 += counts(wrappers)["residual_stack"]
+        a1 += counts()["residual_stack"]
         extractor(1, f"{kind}, one int16-wire predict")
         wire_diff = {k: float(np.abs(wire[k] - got[k]).max()) for k in got}
         if not all(np.allclose(wire[k], got[k], rtol=WIRE_TOL, atol=WIRE_TOL) for k in got):
             raise AssertionError(f"serve {kind}: int16 wire vs f32 wire {wire_diff}")
         times, eager_times = [], []
-        reset_counts(wrappers)
+        reset_counts()
         for _ in range(PREDICT_REPEATS):
             t0 = time.perf_counter()
             served.predict(batch)
@@ -1433,7 +1432,7 @@ def serve_phases(torch, wrappers, smi: str, cfg, work: Path, *, device: str = "c
             with torch.inference_mode():
                 mdl.model_forward(params, cfg, dev, use_openmax=True).logits.cpu()
             eager_times.append(time.perf_counter() - t0)
-        count = counts(wrappers)["residual_stack"]
+        count = counts()["residual_stack"]
         extractor(2 * PREDICT_REPEATS, f"{kind}, predicts and eager forwards")
         if count != 2 * PREDICT_REPEATS:
             raise AssertionError(f"serve {kind}: {count} launches in {PREDICT_REPEATS} "
@@ -1451,12 +1450,12 @@ def serve_phases(torch, wrappers, smi: str, cfg, work: Path, *, device: str = "c
               "text_ids": batch1["text_ids"], "text_mask": batch1["text_mask"],
               "lid_entropy": np.ones(b1, np.float32), "lid_conf": np.zeros(b1, np.float32)}
     times = []
-    reset_counts(wrappers)
+    reset_counts()
     for _ in range(PREDICT_REPEATS + 1):
         t0 = time.perf_counter()
         served_second.predict(batch1)
         times.append(time.perf_counter() - t0)
-    a1 += counts(wrappers)["residual_stack"]
+    a1 += counts()["residual_stack"]
     extractor(PREDICT_REPEATS + 1, "the second bucket's predicts")
     emit({"phase": "path", "path": "serve: exported program vs eager model_forward",
           "card": smi, "B": b0, "seconds": s0, "tol": AGREE_TOL[cfg.compute_dtype],
@@ -1515,9 +1514,9 @@ def serve_phases(torch, wrappers, smi: str, cfg, work: Path, *, device: str = "c
         floats = [json.dumps({"audio": (pcm.astype(np.float32) / 32768.0).tolist(),
                               "sample_rate": SAMPLE_RATE, "text": text}).encode()
                   for pcm, text in clips[:float_requests]]
-        reset_counts(wrappers)
+        reset_counts()
         _, lone_ms, _, failed = post_all(url, b64[:1], 1)
-        count = counts(wrappers)["residual_stack"]
+        count = counts()["residual_stack"]
         extractor(1, "the lone HTTP request")
         if failed or count != 1:
             raise AssertionError(f"serve: the lone request: {failed}, {count} launches")
@@ -1525,10 +1524,10 @@ def serve_phases(torch, wrappers, smi: str, cfg, work: Path, *, device: str = "c
         loops = {}
         for name, bodies in (("audio_b64", b64), ("float_lists", floats)):
             before = get_json(opener, url + "/stats")
-            reset_counts(wrappers)
+            reset_counts()
             predict_s.clear()
             wall, ms, responses, failed = post_all(url, bodies, clients)
-            count = counts(wrappers)["residual_stack"]
+            count = counts()["residual_stack"]
             after = get_json(opener, url + "/stats")
             batches = after["batches"] - before["batches"]
             extractor(batches, f"HTTP {name} batches")
@@ -1595,14 +1594,14 @@ def serve_phases(torch, wrappers, smi: str, cfg, work: Path, *, device: str = "c
     teacher_core = serving.BatchingServer(serving.ArtifactRouter(art, preload=True,
                                                                  device=device), tokenizer=tok)
     try:
-        reset_counts(wrappers)
+        reset_counts()
         student_s, first = submit_all(student_core)
         threshold = float(np.median([r["confidence"] for r in first]))
         cascade = serving.CascadeServer(student_core, teacher_core,
                                         confidence_threshold=threshold)
         cascade_s, answers = submit_all(cascade)
         summary = cascade.stats_summary()
-        count = counts(wrappers)["residual_stack"]
+        count = counts()["residual_stack"]
     finally:
         student_core.close()
         teacher_core.close()
@@ -1626,7 +1625,7 @@ def serve_phases(torch, wrappers, smi: str, cfg, work: Path, *, device: str = "c
     iface = interface.EmotionRecognitionInterface(str(ck), device=device, tokenizer=tok)
     for tta in (False, True):
         out = work / f"infer_{'tta' if tta else 'plain'}.json"
-        reset_counts(wrappers)
+        reset_counts()
         t0 = time.perf_counter()
         res = infer_cli.main(["--checkpoint", str(ck), "--audio", str(wav), "--text",
                               CLIP_TEXTS[1], "--export", str(out), "--device", device]
@@ -1642,7 +1641,7 @@ def serve_phases(torch, wrappers, smi: str, cfg, work: Path, *, device: str = "c
             t0 = time.perf_counter()
             iface.predict_emotion(str(wav), CLIP_TEXTS[1], use_tta=tta)
             times.append(time.perf_counter() - t0)
-        count = counts(wrappers)["residual_stack"]
+        count = counts()["residual_stack"]
         extractor(PREDICT_REPEATS + 2, f"infer tta={tta}")
         if count != PREDICT_REPEATS + 2:
             raise AssertionError(f"infer tta={tta}: {count} launches in the CLI's call and "
@@ -1662,13 +1661,13 @@ def serve_phases(torch, wrappers, smi: str, cfg, work: Path, *, device: str = "c
     icfg = Config(model=cfg)
     long_clip = speech_like(1, int(long_clip_seconds * SAMPLE_RATE), seed=9)[0]
     pipe = integration.DataFlowPipeline(params, icfg, tokenizer=tok)
-    reset_counts(wrappers)
+    reset_counts()
     pipe.process_audio_segment(long_clip[:int(segment_seconds * SAMPLE_RATE)],
                                CLIP_TEXTS[0])   # warm
     t0 = time.perf_counter()
     outs = pipe.process_long_audio(long_clip, CLIP_TEXTS[0], segment_seconds=segment_seconds)
     pipe_s = time.perf_counter() - t0
-    count = counts(wrappers)["residual_stack"]
+    count = counts()["residual_stack"]
     extractor(len(outs) + 1, "pipeline segments")
     if count != len(outs) + 1 or not all(np.isfinite(o["logits"]).all() for o in outs):
         raise AssertionError(f"pipeline: {count} launches in {len(outs)} + 1 segments")
@@ -1680,7 +1679,7 @@ def serve_phases(torch, wrappers, smi: str, cfg, work: Path, *, device: str = "c
     rec = integration.StreamingRecognizer(params, icfg, tokenizer=tok,
                                           segment_seconds=segment_seconds)
     chunk = int(STREAM_CHUNK_SECONDS * SAMPLE_RATE)
-    reset_counts(wrappers)
+    reset_counts()
     t0 = time.perf_counter()
     results, push_ms = [], []
     for start in range(0, long_clip.size, chunk):
@@ -1692,7 +1691,7 @@ def serve_phases(torch, wrappers, smi: str, cfg, work: Path, *, device: str = "c
     tail = rec.flush(CLIP_TEXTS[0])
     stream_s = time.perf_counter() - t0
     results += [tail] if tail is not None else []
-    count = counts(wrappers)["residual_stack"]
+    count = counts()["residual_stack"]
     extractor(len(results), "stream segments")
     if count != len(results) or not all(np.isfinite(r["smoothed_logits"]).all()
                                         for r in results):
@@ -1725,7 +1724,7 @@ def large_config(preset: str, **audio):
         AUDIO_BACKBONE_PRESETS[preset](), **audio))
 
 
-def large_backbone_phases(torch, wrappers, smi: str, work: Path, manifest: str) -> dict:
+def large_backbone_phases(torch, smi: str, work: Path, manifest: str) -> dict:
     """Phase 8 (see the module docstring). Returns each kernel's launches on
     the paths it drives, and A4's layer-norm route timed as a kernel."""
     import dataclasses
@@ -1814,14 +1813,14 @@ def large_backbone_phases(torch, wrappers, smi: str, work: Path, manifest: str) 
             mdl.model_forward(params, cfg, batch).logits.cpu()
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            reset_counts(wrappers)
+            reset_counts()
             times = []
             for _ in range(requests):
                 t0 = time.perf_counter()
                 out = mdl.model_forward(params, cfg, batch)
                 logits = out.logits.cpu()
                 times.append(time.perf_counter() - t0)
-            count = counts(wrappers)
+            count = counts()
             if count["residual_stack"] != requests:
                 raise AssertionError(f"{preset} B={B}: residual_stack launched "
                                      f"{count['residual_stack']} times in {requests} forwards")
@@ -1853,7 +1852,7 @@ def large_backbone_phases(torch, wrappers, smi: str, work: Path, manifest: str) 
         # path, against the unfused layer-norm extractor
         w2v_params = mdl.cast_floating(params["audio_backbone"], bf16)
         for B, calls in ((4, 5), (32, 3)):
-            record = fused_extractor_path(torch, wrappers, w2v_params, cfg.audio, B, calls,
+            record = fused_extractor_path(torch, w2v_params, cfg.audio, B, calls,
                                           vocab=cfg.text.vocab_size)
             launches["conv_tail"] += record["launches"]["conv_tail"]
             emit({"phase": "path", "path": "feature_encoder(allow_fused=True), layer norm",
@@ -1935,12 +1934,12 @@ def large_backbone_phases(torch, wrappers, smi: str, work: Path, manifest: str) 
             raise AssertionError(f"import: logits differ by {float((got - want).abs().max())}")
         del got_params, params
         torch.cuda.empty_cache()
-        reset_counts(wrappers)
+        reset_counts()
         t0 = time.perf_counter()
         res = eval_cli.main(["--manifest", manifest, "--checkpoint", str(imported),
                              "--batch_size", "8", "--dataset_root", str(work / "datasets")])
         eval_s = time.perf_counter() - t0
-        count = counts(wrappers)
+        count = counts()
         if res["logits"].shape != (MANIFEST_CLIPS, cfg.num_labels) or not np.isfinite(
                 res["logits"]).all() or count["residual_stack"] != len(res["step_seconds"]):
             raise AssertionError(f"eval CLI on the import: logits {res['logits'].shape}, "
@@ -1961,7 +1960,7 @@ def large_backbone_phases(torch, wrappers, smi: str, work: Path, manifest: str) 
     return {"launches": launches, "ln_route": ln_route}
 
 
-def fused_extractor_path(torch, wrappers, w2v_params: dict, audio_cfg, B: int, calls: int,
+def fused_extractor_path(torch, w2v_params: dict, audio_cfg, B: int, calls: int,
                          vocab: int) -> dict:
     """`feature_encoder(allow_fused=True)` `calls` times on B 4 s clips in
     bf16, with the launch counters set to 0 just before: one conv_tail
@@ -1980,7 +1979,7 @@ def fused_extractor_path(torch, wrappers, w2v_params: dict, audio_cfg, B: int, c
         unfused_ms = cuda_ms(lambda: w2v.feature_encoder(w2v_params, audio_cfg, wave, mask),
                              calls, warmup=1)
     torch.cuda.synchronize()
-    reset_counts(wrappers)
+    reset_counts()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(calls):
@@ -1988,7 +1987,7 @@ def fused_extractor_path(torch, wrappers, w2v_params: dict, audio_cfg, B: int, c
                                                 allow_fused=True)
     end.record()
     torch.cuda.synchronize()
-    count = counts(wrappers)
+    count = counts()
     what = f"feature_encoder ({audio_cfg.feat_extract_norm} norm) B={B}"
     fronts = calls if audio_cfg.feat_extract_norm == "group" else 0
     if count["conv_tail"] != calls or count["conv_front"] != fronts:
@@ -2017,7 +2016,7 @@ def tree_bytes(tree) -> int:
     return sum(leaf.numel() * leaf.element_size() for _, leaf in leaves_with_paths(tree))
 
 
-def int8_asr_phases(torch, wrappers, smi: str, cfg, work: Path, manifest: str) -> int:
+def int8_asr_phases(torch, smi: str, cfg, work: Path, manifest: str) -> int:
     """Phase 9 (see the module docstring) on phase 5d's checkpoint and
     manifest (`work/checkpoint`, `cfg`'s model). Returns A1's launches on
     the paths it drives."""
@@ -2113,15 +2112,14 @@ def int8_asr_phases(torch, wrappers, smi: str, cfg, work: Path, manifest: str) -
         for name, p in (("bf16", params), ("int8", qparams)):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            reset_counts(wrappers)
-            quant.int8_matmul.launches = 0
+            reset_counts()
             times = []
             for _ in range(requests):
                 t0 = time.perf_counter()
                 logits[name] = mdl.model_forward(p, cfg, batch).logits.float().cpu()
                 times.append(time.perf_counter() - t0)
-            count = counts(wrappers)
-            int8_count = quant.int8_matmul.launches
+            count = counts()
+            int8_count = count["int8_matmul"]
             if count["residual_stack"] != requests:
                 raise AssertionError(f"{name} forward B={B}: residual_stack launched "
                                      f"{count['residual_stack']} times in {requests} forwards")
@@ -2162,7 +2160,7 @@ def int8_asr_phases(torch, wrappers, smi: str, cfg, work: Path, manifest: str) -
     served = ServingModel(art / f"b{seconds:g}s_bs{size}", device="cuda")
     batch = example_batch(size, T=int(seconds * SAMPLE_RATE), S=TEXT_TOKENS,
                           vocab=mcfg.text.vocab_size, seed=5)
-    reset_counts(wrappers)
+    reset_counts()
     served.predict(batch)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2173,7 +2171,7 @@ def int8_asr_phases(torch, wrappers, smi: str, cfg, work: Path, manifest: str) -
         eager = mdl.model_forward(qparams, mcfg, {k: torch.from_numpy(v).cuda()
                                                   for k, v in batch.items()},
                                   use_openmax=True)
-    count = counts(wrappers)
+    count = counts()
     if count["residual_stack"] != 3:
         raise AssertionError(f"int8 artifact: residual_stack launched {count['residual_stack']} "
                              "times in 2 predicts and an eager forward")
@@ -2183,28 +2181,27 @@ def int8_asr_phases(torch, wrappers, smi: str, cfg, work: Path, manifest: str) -
                   for name, want in zip(OUTPUTS, (eager.logits, eager.uncertainty,
                                                   eager.features))}
     del qparams, served
-    reset_counts(wrappers)
-    quant.int8_matmul.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     res = eval_cli.main(["--manifest", manifest, "--checkpoint", str(ck), "--int8",
                          "--batch_size", "8"])
     eval_s = time.perf_counter() - t0
     steps = len(res["step_seconds"]) + len(res["calibration_step_seconds"])
-    count = counts(wrappers)
-    if count["residual_stack"] != steps or not quant.int8_matmul.launches:
+    count = counts()
+    if count["residual_stack"] != steps or not count["int8_matmul"]:
         raise AssertionError(f"eval CLI --int8: residual_stack launched "
                              f"{count['residual_stack']} times in {steps} steps, "
-                             f"{quant.int8_matmul.launches} int8 products")
+                             f"{count['int8_matmul']} int8 products")
     if not np.isfinite(res["logits"]).all():
         raise AssertionError("eval CLI --int8: logits not finite")
     a1 += steps
     clip = work / "datasets" / "clips" / "c000.wav"
-    reset_counts(wrappers)
+    reset_counts()
     t0 = time.perf_counter()
     inferred = infer_cli.main(["--checkpoint", str(ck), "--audio", str(clip), "--text",
                                CLIP_TEXTS[0], "--int8"])
     infer_s = time.perf_counter() - t0
-    if counts(wrappers)["residual_stack"] != 1 or not np.isfinite(
+    if counts()["residual_stack"] != 1 or not np.isfinite(
             inferred["probabilities"]).all():
         raise AssertionError("infer CLI --int8: not one A1 launch or probabilities not finite")
     a1 += 1
@@ -2279,18 +2276,18 @@ def int8_asr_phases(torch, wrappers, smi: str, cfg, work: Path, manifest: str) -
     for name in ("bf16", "int8"):
         if name == "int8":
             large = quant.quantize_whisper(large)
-        quant.int8_matmul.launches = 0
+        reset_counts()
         runs = [transcribe_timed(large, large_cfg, B, seed=B)
                 for B in ASR_BATCHES["whisper-large-v3"]]
-        if (quant.int8_matmul.launches > 0) != (name == "int8"):
-            raise AssertionError(f"whisper-large-v3 {name}: {quant.int8_matmul.launches} "
-                                 "int8 products")
+        products = counts()["int8_matmul"]
+        if (products > 0) != (name == "int8"):
+            raise AssertionError(f"whisper-large-v3 {name}: {products} int8 products")
         emit({"phase": "path", "path": f"whisper-large-v3 decode, {name}", "card": smi,
               "clip_seconds": ASR_CLIP_SECONDS, "new_tokens": ASR_NEW_TOKENS,
               "weight_bytes": tree_bytes(large),
               "layer_weight_bytes": tree_bytes({k: large[k]["layers"]
                                                 for k in ("encoder", "decoder")}),
-              "int8_products": quant.int8_matmul.launches, "runs": runs})
+              "int8_products": products, "runs": runs})
     del large
 
     # 9f. EnhancedASRIntegration over TorchWhisperASR (whisper-base, bf16)
@@ -2314,23 +2311,23 @@ def int8_asr_phases(torch, wrappers, smi: str, cfg, work: Path, manifest: str) -
         [CLIP_TEXTS[0]], TEXT_TOKENS)
     batch = {"audio": audio[None], "audio_mask": np.ones((1, len(audio)), np.float32),
              "text_ids": ids, "text_mask": tmask, "asr_feats": result.asr_features[None]}
-    reset_counts(wrappers)
+    reset_counts()
     with torch.inference_mode():
         with_asr = mdl.model_forward(params, asr_cfg, batch).logits.float().cpu()
         without = mdl.model_forward(params, mcfg, batch).logits.float().cpu()
-    if counts(wrappers)["residual_stack"] != 2 or not torch.isfinite(with_asr).all() \
+    if counts()["residual_stack"] != 2 or not torch.isfinite(with_asr).all() \
             or torch.equal(with_asr, without):
         raise AssertionError("model_forward with use_asr: not finite, not one A1 launch a "
                              "forward, or the ASR features changed nothing")
     a1 += 2
     del params
-    reset_counts(wrappers)
+    reset_counts()
     t0 = time.perf_counter()
     res = eval_cli.main(["--manifest", manifest, "--checkpoint", str(ck), "--use_asr",
                          "--batch_size", "8"])
     asr_eval_s = time.perf_counter() - t0
     steps = len(res["step_seconds"]) + len(res["calibration_step_seconds"])
-    if counts(wrappers)["residual_stack"] != steps or not np.isfinite(res["logits"]).all():
+    if counts()["residual_stack"] != steps or not np.isfinite(res["logits"]).all():
         raise AssertionError("eval CLI --use_asr: not one A1 launch a step, or logits not finite")
     a1 += steps
     emit({"phase": "path", "path": "ASR: EnhancedASRIntegration(TorchWhisperASR) -> "
@@ -2517,7 +2514,7 @@ def step_card_against_cpu(torch, opt, state: dict, card: dict, cpu: dict) -> dic
     return errs
 
 
-def academic_phases(torch, wrappers, smi: str, cfg, work: Path) -> int:
+def academic_phases(torch, smi: str, cfg, work: Path) -> int:
     """Phase 10 (see the module docstring) on phase 5d's full-width
     checkpoint. Returns A1's launches on the paths it drives (the
     academic_eval CLI's eval forwards, the distill CLI's teacher forwards
@@ -2540,7 +2537,7 @@ def academic_phases(torch, wrappers, smi: str, cfg, work: Path) -> int:
     # 10a. A1 at the slice's classifier shapes against its plain version
     num_sms = torch.cuda.get_device_properties(0).multi_processor_count
     errs, plans, timing = {}, {}, {}
-    reset_counts(wrappers)
+    reset_counts()
     for (L, D), batches in A1_SLICE_SHAPES.items():
         for B in batches:
             stacked, x = residual_stack_inputs(torch, B, L, D, seed=B + D)
@@ -2559,7 +2556,7 @@ def academic_phases(torch, wrappers, smi: str, cfg, work: Path) -> int:
                              "plain_ms": cuda_ms(lambda: rs.residual_stack_plain(stacked, x), 10),
                              "bound_ms": bound_ms, "bound_by": bound_by,
                              "ms_over_bound": ms / bound_ms}
-    compared = counts(wrappers)["residual_stack"]
+    compared = counts()["residual_stack"]
     if compared < sum(map(len, A1_SLICE_SHAPES.values())):
         raise AssertionError(f"10a: residual_stack launched {compared} times")
     emit({"phase": "kernel", "name": "residual_stack", "shapes": "slice", "card": smi,
@@ -2597,7 +2594,7 @@ def academic_phases(torch, wrappers, smi: str, cfg, work: Path) -> int:
     out_dir = work / "academic_out"
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_counts(wrappers)
+    reset_counts()
     t0 = time.perf_counter()
     # every pass's rows, kept for phase 12c, and each K's adaptation steps
     with PassRows(ev) as passes, AdaptSteps(few_shot) as adapt_steps:
@@ -2606,7 +2603,7 @@ def academic_phases(torch, wrappers, smi: str, cfg, work: Path) -> int:
                                  str(out_dir), "--batch_size", "8", *ACADEMIC_ARGS])
     academic_s = time.perf_counter() - t0
     passes.save(work / "academic_passes.npz", steps=steps, few_shot_steps=few_shot_steps)
-    count = counts(wrappers)
+    count = counts()
     peak = torch.cuda.max_memory_allocated()
     saved = json.loads((out_dir / "academic_evaluation.json").read_text())
     missing = [part for part in ACADEMIC_PARTS if part not in saved]
@@ -2673,7 +2670,7 @@ def academic_phases(torch, wrappers, smi: str, cfg, work: Path) -> int:
         return timed_step
 
     torch.cuda.reset_peak_memory_stats()
-    reset_counts(wrappers)
+    reset_counts()
     distill.make_distill_step = timed_make_step
     t0 = time.perf_counter()
     try:
@@ -2684,7 +2681,7 @@ def academic_phases(torch, wrappers, smi: str, cfg, work: Path) -> int:
     finally:
         distill.make_distill_step = make_step
     distill_s = time.perf_counter() - t0
-    count = counts(wrappers)
+    count = counts()
     peak = torch.cuda.max_memory_allocated()
     train_steps = pipeline.BucketedLoader(ds, batch_size=8, tokenizer=tok, shuffle=True,
                                           drop_remainder=True).batches_per_epoch()
@@ -2712,14 +2709,14 @@ def academic_phases(torch, wrappers, smi: str, cfg, work: Path) -> int:
     predictions, eval_s = {}, {}
     for tier, checkpoint in (("student", best), ("teacher", str(work / "checkpoint"))):
         predictions[tier] = str(work / f"{tier}_predictions.jsonl")
-        reset_counts(wrappers)
+        reset_counts()
         t0 = time.perf_counter()
         res = eval_cli.main(["--manifest", manifest, "--checkpoint", checkpoint,
                              "--dataset_root", datasets, "--batch_size", "8",
                              "--predictions_out", predictions[tier]])
         eval_s[tier] = time.perf_counter() - t0
-        n = counts(wrappers)["residual_stack"]
-        expect_extractor(counts(wrappers), n, f"eval CLI on the {tier}")
+        n = counts()["residual_stack"]
+        expect_extractor(counts(), n, f"eval CLI on the {tier}")
         if n != len(res["step_seconds"]) or res["logits"].shape != (MANIFEST_CLIPS,
                                                                     cfg.num_labels):
             raise AssertionError(f"eval CLI on the {tier}: logits {res['logits'].shape}, "
@@ -2798,7 +2795,7 @@ def research_card_against_cpu(torch) -> dict:
             for k, v in outs["cuda"].items()}
 
 
-def parallel_phases(torch, wrappers, smi: str, cfg, work: Path, manifest: str) -> int:
+def parallel_phases(torch, smi: str, cfg, work: Path, manifest: str) -> int:
     """Phase 11 (see the module docstring) on phase 5d's manifest. Returns
     A1's launches on the paths it drives (the traced eval forward, the
     pod-branch train CLI's validation and Weibull passes)."""
@@ -2851,13 +2848,13 @@ def parallel_phases(torch, wrappers, smi: str, cfg, work: Path, manifest: str) -
     with torch.inference_mode():
         mdl.model_forward(params, cfg, batch, deterministic=True)
         torch.cuda.synchronize()
-        reset_counts(wrappers)
+        reset_counts()
         with profiling.trace(work / "trace") as prof:
             t0 = time.perf_counter()
             out = mdl.model_forward(params, cfg, batch, deterministic=True)
             profiling.sync(out.logits)
             forward_ms = 1e3 * (time.perf_counter() - t0)
-    a1 = counts(wrappers)["residual_stack"]
+    a1 = counts()["residual_stack"]
     if a1 != 1:
         raise AssertionError(f"11b: residual_stack launched {a1} times in one forward")
     trace_path = work / "trace" / profiling.TRACE_FILE
@@ -3025,11 +3022,11 @@ def parallel_phases(torch, wrappers, smi: str, cfg, work: Path, manifest: str) -
             pipeline.SERDataset(manifest, DataConfig(dataset_root=datasets)), batch_size=8,
             tokenizer=tokenizer.get_tokenizer(vocab_size=cfg.text.vocab_size), shuffle=True,
             drop_remainder=True).batches_per_epoch()
-        reset_counts(wrappers)
+        reset_counts()
         t0 = time.perf_counter()
         res = train_cli.main(args)
         cli_s = time.perf_counter() - t0
-        count = counts(wrappers)
+        count = counts()
         written = sorted(d.name for d in save_dir.glob("epoch_*"))
         if len(written) != 1 or not (save_dir / written[0] / ckpt.OPT_STATE_FILE).exists():
             raise AssertionError(f"11d: rank 0 wrote {written}")
@@ -3270,11 +3267,8 @@ def tp_worker(rank: int, port: int, work: Path) -> int:
         evaluate as ev, few_shot)
     from multilingual_multimodal_speech_emotion_recognition_tpu_torch.models import (
         model as mdl)
-    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.ops import (
-        conv_front as cf, conv_tail as ct, pos_conv as pc, residual_stack as rs)
     from multilingual_multimodal_speech_emotion_recognition_tpu_torch.parallel import (
         mesh as mesh_lib, tensor)
-    kernels = {"conv_front": cf.conv_front, "conv_tail": ct.conv_tail, "pos_conv": pc.pos_conv}
     from multilingual_multimodal_speech_emotion_recognition_tpu_torch.train import (
         optimizer as opt_lib, train_step as ts)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3294,15 +3288,15 @@ def tp_worker(rank: int, port: int, work: Path) -> int:
         with torch.inference_mode():
             mdl.model_forward(view, cfg, batch, tp=tp)
             torch.cuda.synchronize()
-            rs.residual_stack.launches = 0
-            reset_counts(kernels)
+            reset_counts()
             times = []
             for _ in range(TP_FORWARDS):
                 t0 = time.perf_counter()
                 logits = mdl.model_forward(view, cfg, batch, tp=tp).logits.cpu()
                 times.append(1e3 * (time.perf_counter() - t0))
-        forward = {"ms_all": times, "launches": rs.residual_stack.launches, "logits": logits,
-                   "extractor": counts(kernels)}
+        count = counts()
+        forward = {"ms_all": times, "launches": count["residual_stack"], "logits": logits,
+                   "extractor": count}
 
         f32 = dataclasses.replace(cfg, compute_dtype="float32")
         tcfg = TrainConfig(batch_size=TRAIN_B, augment=True)
@@ -3343,8 +3337,7 @@ def tp_worker(rank: int, port: int, work: Path) -> int:
         # 12c. the academic_eval CLI under the group, mesh (2, 1) from the
         # checkpoint's config; every pass's gathered rows kept
         manifest = str(work / "academic" / "manifest.jsonl")
-        rs.residual_stack.launches = 0
-        reset_counts(kernels)
+        reset_counts()
         t0 = time.perf_counter()
         with PassRows(ev) as passes, AdaptSteps(few_shot) as adapt_steps:
             res = academic_cli.main(["--checkpoint", str(work / "checkpoint"), "--manifest",
@@ -3355,8 +3348,8 @@ def tp_worker(rank: int, port: int, work: Path) -> int:
         seconds = time.perf_counter() - t0
         passes.save(work / f"rank{rank}_passes.npz")
         (work / f"rank{rank}_academic.json").write_text(json.dumps({
-            "seconds": seconds, "launches": rs.residual_stack.launches,
-            "extractor": counts(kernels), "adapt_steps": sum(r["steps"] for r in adapt_steps.runs),
+            "seconds": seconds, "launches": counts()["residual_stack"],
+            "extractor": counts(), "adapt_steps": sum(r["steps"] for r in adapt_steps.runs),
             "num_samples": res["baseline"]["num_samples"],
             "results": {k: v for k, v in res.items() if k != "report"}},
             default=lambda o: o.tolist() if hasattr(o, "tolist") else str(o)))
@@ -3365,7 +3358,7 @@ def tp_worker(rank: int, port: int, work: Path) -> int:
     return 0
 
 
-def tensor_parallel_phases(torch, wrappers, smi: str, cfg, work: Path) -> int:
+def tensor_parallel_phases(torch, smi: str, cfg, work: Path) -> int:
     """Phase 12 (see the module docstring) on phase 10c's checkpoint, clips
     and results. Returns A1's launches on the paths it drives (12a's
     forwards, 12b's forwards on rank 0, 12c's CLI on rank 0)."""
@@ -3398,7 +3391,7 @@ def tensor_parallel_phases(torch, wrappers, smi: str, cfg, work: Path) -> int:
         mesh = mesh_lib.make_mesh(data=1, model=1)
         batch = tp_flagship_batch(torch, cfg, TP_B)
         sharded = mesh_lib.shard_params(cloned(params), mesh)
-        reset_counts(wrappers)
+        reset_counts()
         with torch.inference_mode():
             plain = mdl.model_forward(params, cfg, batch).logits
             view, tp = tensor.split(sharded)
@@ -3407,10 +3400,10 @@ def tensor_parallel_phases(torch, wrappers, smi: str, cfg, work: Path) -> int:
         if not torch.equal(got, plain):
             raise AssertionError(f"12a: the tensor-parallel forward on a (1, 1) mesh is "
                                  f"{forward_diff} off the unsharded one")
-        count = counts(wrappers)["residual_stack"]
+        count = counts()["residual_stack"]
         if count != 2:
             raise AssertionError(f"12a: residual_stack launched {count} times in 2 forwards")
-        expect_extractor(counts(wrappers), 2, "12a: forwards on a (1, 1) mesh and unsharded",
+        expect_extractor(counts(), 2, "12a: forwards on a (1, 1) mesh and unsharded",
                          pos_conv=1)   # the unsharded forward's: F2 takes no ModelGroup
         a1 += count
         tcfg = TrainConfig(batch_size=TRAIN_B, augment=True)
@@ -3613,13 +3606,30 @@ def tensor_parallel_phases(torch, wrappers, smi: str, cfg, work: Path) -> int:
     return a1
 
 
-def reset_counts(wrappers) -> None:
-    for w in wrappers.values():
-        w.launches = 0
+# Each counted kernel's key in the port's launch table (utils/profiling.counters)
+LAUNCH_KEYS = {"residual_stack": "residual_stack.launches", "conv_front": "conv_front.launches",
+               "conv_tail": "conv_tail.launches", "pos_conv": "pos_conv.launches",
+               "flash_attention": "flash_attention.launches",
+               "attentive_pooling": "attentive_stats_pooling.launches",
+               "int8_matmul": "int8_matmul.launches"}
+COUNTED_FROM: dict = {}
 
 
-def counts(wrappers) -> dict:
-    return {name: w.launches for name, w in wrappers.items()}
+def launch_table() -> dict:
+    from multilingual_multimodal_speech_emotion_recognition_tpu_torch.utils import profiling
+    return profiling.counters()
+
+
+def reset_counts() -> None:
+    """Count the kernels' launches from here on (`counts`)."""
+    COUNTED_FROM.update(launch_table())
+
+
+def counts() -> dict:
+    """Each kernel's launches since the last `reset_counts`."""
+    table = launch_table()
+    return {name: table.get(key, 0) - COUNTED_FROM.get(key, 0)
+            for name, key in LAUNCH_KEYS.items()}
 
 
 # The audio encoder's kernels' launches on the model paths: each of the
@@ -3662,10 +3672,6 @@ def main() -> int:
     from multilingual_multimodal_speech_emotion_recognition_tpu_torch.ops import (
         _build, attentive_pooling as ap, conv_front as cf, conv_tail as ct,
         flash_attention as fa, pos_conv as pc, residual_stack as rs)
-    wrappers = {"residual_stack": rs.residual_stack, "conv_front": cf.conv_front,
-                "conv_tail": ct.conv_tail, "pos_conv": pc.pos_conv,
-                "flash_attention": fa.flash_attention,
-                "attentive_pooling": ap.attentive_stats_pooling}
     bf16 = torch.bfloat16
 
     # 1. device
@@ -3694,7 +3700,7 @@ def main() -> int:
     # 3a. A1: the residual stack, one cooperative grid over the card; B=300
     # has blocks that loop over several row groups
     L, D = 35, 512
-    rs.residual_stack.launches = 0
+    reset_counts()
     errs = {}
     batches = (1, 3, 4, 8, 11, 128, 300) + A1_TTA_BATCHES
     for B in batches:
@@ -3703,8 +3709,8 @@ def main() -> int:
         want = rs.residual_stack_plain(stacked, x)
         torch.cuda.synchronize()
         errs[B] = check_close(f"residual_stack B={B}", got, want, KERNEL_TOL)
-    if rs.residual_stack.launches != len(batches):
-        raise AssertionError(f"residual_stack launched {rs.residual_stack.launches} "
+    if counts()["residual_stack"] != len(batches):
+        raise AssertionError(f"residual_stack launched {counts()['residual_stack']} "
                              f"times for {len(batches)} calls")
     num_sms = torch.cuda.get_device_properties(0).multi_processor_count
     timing, plans = {}, {}
@@ -3916,13 +3922,13 @@ def main() -> int:
         batch = example_batch(B, T=CLIP_SAMPLES, S=TEXT_TOKENS, vocab=cfg.text.vocab_size)
         torch.cuda.reset_peak_memory_stats()
         times = []
-        reset_counts(wrappers)
+        reset_counts()
         for _ in range(requests):
             t0 = time.perf_counter()
             out = mdl.model_forward(params, cfg, batch)
             logits = out.logits.cpu()
             times.append(time.perf_counter() - t0)
-        count = counts(wrappers)
+        count = counts()
         if count["residual_stack"] != requests:
             raise AssertionError(f"B={B}: residual_stack launched {count['residual_stack']} "
                                  f"times in {requests} forwards")
@@ -3970,13 +3976,13 @@ def main() -> int:
                 dsp_times.append(time.perf_counter() - t0)
             torch.cuda.reset_peak_memory_stats()
             times = []
-            reset_counts(wrappers)
+            reset_counts()
             for _ in range(requests):
                 t0 = time.perf_counter()
                 out = mdl.model_forward(params, cfg, batch)
                 logits = out.logits.cpu()
                 times.append(time.perf_counter() - t0)
-            count = counts(wrappers)
+            count = counts()
             if count["residual_stack"] != requests:
                 raise AssertionError(f"{kind} B={B}: residual_stack launched "
                                      f"{count['residual_stack']} times in {requests} forwards")
@@ -4007,7 +4013,7 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
     for B, calls in ((4, 5), (128, 3)):
-        record = fused_extractor_path(torch, wrappers, w2v_params, cfg.audio, B, calls,
+        record = fused_extractor_path(torch, w2v_params, cfg.audio, B, calls,
                                       vocab=cfg.text.vocab_size)
         launches["conv_tail"] += record["launches"]["conv_tail"]
         launches["conv_front"] += record["launches"]["conv_front"]
@@ -4024,7 +4030,7 @@ def main() -> int:
         pool_inputs = {site: pooling_inputs(torch, B, S, D, bf16, seed=B + S)
                        for site, (S, D) in POOLING_SITES.items()}
         torch.cuda.synchronize()
-        reset_counts(wrappers)
+        reset_counts()
         outs = {site: fa.flash_attention(*inputs[site], num_heads=ATTENTION_SITES[site][3])
                 for site in ATTENTION_SITES}
         pooled = {site: ap.attentive_stats_pooling(*pool_inputs[site])
@@ -4033,7 +4039,7 @@ def main() -> int:
         if ap.attentive_stats_pooling.last_route != "bf16":
             raise AssertionError(f"B={B}: pooling took route "
                                  f"{ap.attentive_stats_pooling.last_route}, not bf16")
-        count = counts(wrappers)
+        count = counts()
         if (count["flash_attention"] != len(ATTENTION_SITES)
                 or count["attentive_pooling"] != len(POOLING_SITES)):
             raise AssertionError(f"B={B}: launches {count} for {len(ATTENTION_SITES)} "
@@ -4075,14 +4081,14 @@ def main() -> int:
         preds_path = work / "predictions.jsonl"
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        reset_counts(wrappers)
+        reset_counts()
         t0 = time.perf_counter()
         res = eval_cli.main(["--manifest", manifest, "--checkpoint", str(work / "checkpoint"),
                              "--use_tta", "--num_tta", "5", "--calibrate",
                              "--val_manifest", manifest, "--batch_size", "8",
                              "--predictions_out", str(preds_path)])
         cli_seconds = time.perf_counter() - t0
-        count = counts(wrappers)
+        count = counts()
         peak = torch.cuda.max_memory_allocated()
         steps, cal_steps = len(res["step_seconds"]), len(res["calibration_step_seconds"])
         if count["residual_stack"] != steps + cal_steps:
@@ -4149,13 +4155,13 @@ def main() -> int:
             generator = torch.Generator(device="cuda").manual_seed(1)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            reset_counts(wrappers)
+            reset_counts()
             times = []
             for _ in range(requests):
                 t0 = time.perf_counter()
                 out = (tta_step(params, batch, generator) / 1.2).cpu()
                 times.append(time.perf_counter() - t0)
-            count = counts(wrappers)
+            count = counts()
             peak = torch.cuda.max_memory_allocated()
             if count["residual_stack"] != requests:
                 raise AssertionError(f"TTA B={B}: residual_stack launched "
@@ -4175,17 +4181,17 @@ def main() -> int:
             torch.cuda.empty_cache()
         del params
         torch.cuda.empty_cache()
-        launches["residual_stack"] += train_phases(torch, wrappers, smi, cfg, small, work,
+        launches["residual_stack"] += train_phases(torch, smi, cfg, small, work,
                                                    manifest)
-        launches["residual_stack"] += serve_phases(torch, wrappers, smi, cfg, work)
-        large = large_backbone_phases(torch, wrappers, smi, work, manifest)
+        launches["residual_stack"] += serve_phases(torch, smi, cfg, work)
+        large = large_backbone_phases(torch, smi, work, manifest)
         for kname, n in large["launches"].items():
             launches[kname] += n
-        launches["residual_stack"] += int8_asr_phases(torch, wrappers, smi, cfg, work,
+        launches["residual_stack"] += int8_asr_phases(torch, smi, cfg, work,
                                                        manifest)
-        launches["residual_stack"] += academic_phases(torch, wrappers, smi, cfg, work)
-        launches["residual_stack"] += parallel_phases(torch, wrappers, smi, cfg, work, manifest)
-        launches["residual_stack"] += tensor_parallel_phases(torch, wrappers, smi, cfg, work)
+        launches["residual_stack"] += academic_phases(torch, smi, cfg, work)
+        launches["residual_stack"] += parallel_phases(torch, smi, cfg, work, manifest)
+        launches["residual_stack"] += tensor_parallel_phases(torch, smi, cfg, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()

@@ -128,17 +128,12 @@ def channel_layer_norm(p: dict, x: Tensor, eps: float) -> Tensor:
 
 def front_route(params: dict, cfg: Wav2Vec2Config, wave: Tensor) -> bool:
     """Whether `feature_encoder` runs the group-mode extractor on the two
-    kernels (ops/conv_front then ops/conv_tail): a CUDA bf16 waveform, the
-    group norm, both kernels' geometry, and no gradient recorded for the
-    extractor (the kernels have no backward)."""
-    if not (wave.is_cuda and wave.dtype == torch.bfloat16
-            and cfg.feat_extract_norm == "group"
-            and conv_front.conv_front_supported(cfg.conv_kernel, cfg.conv_stride, cfg.conv_dim)
-            and conv_tail.conv_tail_supported(cfg.conv_kernel, cfg.conv_stride, cfg.conv_dim)):
-        return False
-    leaves = [wave, *params["group_norm"].values()]
-    leaves += [t for conv in params["convs"] for t in conv.values()]
-    return not (torch.is_grad_enabled() and any(t.requires_grad for t in leaves))
+    kernels: group mode, and each kernel takes its call (`conv_front.takes`;
+    `conv_tail.takes` of the front's output, in the wave's dtype)."""
+    convs = params["convs"]
+    return (cfg.feat_extract_norm == "group"
+            and conv_front.takes(convs[0], params["group_norm"], wave, cfg.conv_stride[0])
+            and conv_tail.takes(convs, cfg.conv_stride, wave.device, wave.dtype))
 
 
 def feature_encoder(params: dict, cfg: Wav2Vec2Config, wave: Tensor,
@@ -302,16 +297,9 @@ def _encoder_stack(stacked: dict, cfg: Wav2Vec2Config, h: Tensor, attn_bias: Ten
 
 
 def pos_conv_route(params: dict, cfg: Wav2Vec2Config, h: Tensor, tp=None) -> bool:
-    """Whether `_positional_conv` runs on the kernel (ops/pos_conv): a CUDA
-    bf16 h, no tensor parallelism, the kernel's shape (C / groups channels
-    a group in ops/pos_conv.GROUP_CHANNELS, an even K) and no gradient
-    recorded for the conv (the kernel has no backward)."""
-    if not (h.is_cuda and h.dtype == torch.bfloat16 and tp is None
-            and pos_conv.pos_conv_supported(h.shape[-1] // cfg.num_conv_pos_embedding_groups,
-                                            cfg.num_conv_pos_embeddings)):
-        return False
-    leaves = [h, *params["pos_conv"].values()]
-    return not (torch.is_grad_enabled() and any(t.requires_grad for t in leaves))
+    """Whether `_positional_conv` runs on the kernel: no tensor
+    parallelism, and the kernel takes the call (`pos_conv.takes`)."""
+    return tp is None and pos_conv.takes(params["pos_conv"], h)
 
 
 def _positional_conv(params: dict, cfg: Wav2Vec2Config, h: Tensor, tp=None) -> Tensor:

@@ -1,4 +1,4 @@
-"""Build the port's CUDA sources with nvcc and load them with ctypes.
+"""Build the port's CUDA sources with nvcc, load them with ctypes, guard their wrappers.
 
 Each `csrc/<name>.cu` exposes a plain C interface and is compiled on first
 use into `build/kernels/lib<name>-<hash>.so` at the root of the checkout
@@ -18,7 +18,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, List, Sequence
+from typing import Dict, Iterable, List, Optional, Sequence
 
 import torch
 
@@ -26,8 +26,6 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-LINK_FLAGS = {"attentive_pooling": ("-lcuda",), "conv_tail": ("-lcuda",),
-              "pos_conv": ("-lcuda",), "residual_stack": ("-lcuda",)}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -44,9 +42,14 @@ def nvcc() -> str:
     return found
 
 
+def link_flags(name: str) -> tuple:
+    """`-lcuda` where csrc/<name>.cu calls `cuTensorMapEncodeTiled`."""
+    return ("-lcuda",) if b"cuTensorMapEncodeTiled" in (CSRC / f"{name}.cu").read_bytes() else ()
+
+
 def library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
-    flags = NVCC_FLAGS + LINK_FLAGS.get(name, ())
+    flags = NVCC_FLAGS + link_flags(name)
     digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
@@ -65,7 +68,7 @@ def build_all(names: Iterable[str]) -> List[Path]:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
         proc = subprocess.Popen([nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                                 str(CSRC / f"{name}.cu"), *LINK_FLAGS.get(name, ())],
+                                 str(CSRC / f"{name}.cu"), *link_flags(name)],
                                 stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                                 text=True)
         running.append((name, proc, tmp, lib))
@@ -83,17 +86,12 @@ def build_all(names: Iterable[str]) -> List[Path]:
     return [library_path(name) for name in names]
 
 
-def build(name: str) -> Path:
-    """Compile csrc/<name>.cu unless its library is already built."""
-    return build_all([name])[0]
-
-
 def load(name: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:
     """The loaded library of csrc/<name>.cu, built on first use. Each entry
     point in `signatures` (its ctypes argument types) returns a CUDA error
     code, which `<name>_error_string` turns into text."""
     if name not in _loaded:
-        lib = ctypes.CDLL(str(build(name)))
+        lib = ctypes.CDLL(str(build_all([name])[0]))
         for entry, argtypes in signatures.items():
             fn = getattr(lib, entry)
             fn.argtypes = list(argtypes)
@@ -116,3 +114,22 @@ def launch(name: str, signatures: Dict[str, Sequence], entry: str,
     if err != 0:
         raise RuntimeError(f"{entry} kernel launch failed: "
                            + getattr(lib, f"{name}_error_string")(err).decode())
+
+
+def grad_wanted(tensors: Iterable[Optional[torch.Tensor]]) -> bool:
+    """Whether autograd records and one of `tensors` (None skipped) wants a gradient."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
+
+
+def takes_plain(name: str, device: torch.device, tensors: Iterable[Optional[torch.Tensor]],
+                hint: str = "run it under torch.no_grad() or torch.inference_mode()") -> bool:
+    """Whether kernel `name`'s wrapper runs its plain version for a call on
+    `device`: on the CPU where `grad_wanted(tensors)`, so that the result
+    keeps its history; else it calls its op. Raises ValueError off cpu and
+    cuda, RuntimeError with `hint` where a CUDA call wants a gradient."""
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: no kernel for device {device}")
+    wanted = grad_wanted(tensors)
+    if wanted and device.type == "cuda":
+        raise RuntimeError(f"{name}: the CUDA kernel has no backward; {hint}")
+    return wanted

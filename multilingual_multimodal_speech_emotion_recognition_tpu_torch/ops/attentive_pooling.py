@@ -44,11 +44,13 @@ from typing import Iterator, NamedTuple, Tuple
 
 import torch
 
+from ..utils import profiling
 from . import _build
 
 Tensor = torch.Tensor
 
 NEG_BIG = -1e30
+LAUNCHES = profiling.launch_key("attentive_stats_pooling")
 POOL_EPS = 1e-6
 # D's limit: the f32 route's [32, D] f32 tile, and the bf16 route's
 # [64, D] bf16 tile beside its W1 ring, fit a block's shared memory.
@@ -281,10 +283,9 @@ def attentive_stats_pooling(params: dict, x: Tensor, mask: Tensor) -> Tensor:
                  else "attentive_pooling_f32")
         _build.launch("attentive_pooling", _SIGNATURES, entry, x.device, x.data_ptr(),
                       *(t.data_ptr() for t in f32), out.data_ptr(), B, S, D, H)
-    attentive_stats_pooling.launches += 1
+    profiling.launched(LAUNCHES)
     attentive_stats_pooling.last_route = name
     return out
 
 
-attentive_stats_pooling.launches = 0
 attentive_stats_pooling.last_route = None

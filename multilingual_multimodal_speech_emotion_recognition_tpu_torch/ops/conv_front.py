@@ -19,11 +19,7 @@ rounded. Only the order of the f32 sums differs.
 
 The front is the registered op `ser_torch::conv_front` (its CPU
 implementation the plain version, its CUDA implementation the launch), so
-a program traced by torch.export holds one node for it. `conv_front` takes
-the plain version for a tensor on the CPU only; for a CUDA tensor it
-launches the kernel or raises. The kernel has no backward: on a CUDA
-tensor the wrapper raises where autograd is recording and an input wants
-a gradient.
+a program traced by torch.export holds one node for it.
 """
 
 from __future__ import annotations
@@ -34,12 +30,14 @@ from typing import Optional, Sequence
 import torch
 
 from ..models import layers
+from ..utils import profiling
 from . import _build
 
 Tensor = torch.Tensor
 
 KERNEL, STRIDE = 10, 5     # conv 0 of the HF wav2vec2 / HuBERT / WavLM extractors
 MAX_CHANNELS = 4096        # C / 4 threads a block of the apply pass
+LAUNCHES = profiling.launch_key("conv_front")
 
 
 def conv_front_supported(conv_kernel: Sequence[int], conv_stride: Sequence[int],
@@ -48,6 +46,14 @@ def conv_front_supported(conv_kernel: Sequence[int], conv_stride: Sequence[int],
     a multiple of 128 channels, at most MAX_CHANNELS."""
     return (conv_kernel[0] == KERNEL and conv_stride[0] == STRIDE
             and conv_dim[0] % 128 == 0 and conv_dim[0] <= MAX_CHANNELS)
+
+
+def takes(conv0: dict, group_norm: dict, wave: Tensor, stride: int) -> bool:
+    """Whether `conv_front` launches the kernel: CUDA bf16, conv 0's geometry, no gradient."""
+    kernel = conv0["kernel"]
+    return (wave.is_cuda and wave.dtype == torch.bfloat16
+            and conv_front_supported(kernel.shape[-1:], (stride,), kernel.shape[:1])
+            and not _build.grad_wanted((wave, *conv0.values(), *group_norm.values())))
 
 
 def masked_group_norm_per_channel(p: dict, x: Tensor, frame_mask: Tensor,
@@ -108,8 +114,7 @@ def build() -> None:
 @conv_front_op.register_kernel("cuda")
 def _conv_front_cuda(wave: Tensor, samples: Tensor, kernel: Tensor, bias: Optional[Tensor],
                      scale: Tensor, shift: Tensor, stride: int, eps: float) -> Tensor:
-    """The launch: checks what the kernel takes and counts the launch on
-    the `conv_front` wrapper."""
+    """The launch: checks what the kernel takes and counts the launch."""
     if wave.dim() != 2 or wave.dtype != torch.bfloat16 or not wave.is_contiguous():
         raise ValueError(f"conv_front: the kernel takes a contiguous bf16 wave [B, T]; "
                          f"got {tuple(wave.shape)} {wave.dtype} "
@@ -144,7 +149,7 @@ def _conv_front_cuda(wave: Tensor, samples: Tensor, kernel: Tensor, bias: Option
                   samples.data_ptr(), w.data_ptr(),
                   None if b is None else b.data_ptr(), scale.data_ptr(), shift.data_ptr(),
                   stats.data_ptr(), out.data_ptr(), B, T, C, eps)
-    conv_front.launches += 1
+    profiling.launched(LAUNCHES)
     return out
 
 
@@ -155,19 +160,10 @@ def conv_front(conv0: dict, group_norm: dict, wave: Tensor, samples: Tensor,
     valid samples, and GELU: wave [B, T] -> [B, T1, C], contiguous. It
     calls `ser_torch::conv_front`: on a CPU tensor the plain version, on a
     CUDA tensor the kernel, which takes bf16 and raises on what it does not
-    take. Where autograd records and an input wants a gradient, a CPU
-    tensor takes the plain version with its history and a CUDA tensor
-    raises: the kernel has no backward."""
-    if wave.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"conv_front: no kernel for device {wave.device}")
-    tensors = (wave, *conv0.values(), *group_norm.values())
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        if wave.device.type == "cpu":
-            return conv_front_plain(conv0, group_norm, wave, samples, stride, eps)
-        raise RuntimeError("conv_front: the CUDA kernel has no backward; run it under "
-                           "torch.no_grad() or torch.inference_mode()")
+    take; a call that wants a gradient goes by `_build.takes_plain`."""
+    if _build.takes_plain("conv_front", wave.device,
+                          (wave, *conv0.values(), *group_norm.values())):
+        return conv_front_plain(conv0, group_norm, wave, samples, stride, eps)
     return torch.ops.ser_torch.conv_front(wave, samples, conv0["kernel"], conv0.get("bias"),
                                           group_norm["scale"], group_norm["bias"], stride, eps)
 
-
-conv_front.launches = 0

@@ -27,11 +27,7 @@ bf16 tensor cores' 989 TFLOP/s.
 
 The tail is the registered op `ser_torch::conv_tail` (its CPU
 implementation the plain version, its CUDA implementation the launch), so
-a program traced by torch.export holds one node for it. `conv_tail` takes
-the plain version for a tensor on the CPU only; for a CUDA tensor it
-launches the kernel or raises. The kernel has no backward: on a CUDA
-tensor the wrapper raises where autograd is recording and an input wants
-a gradient.
+a program traced by torch.export holds one node for it.
 """
 
 from __future__ import annotations
@@ -42,11 +38,13 @@ from typing import List, Optional, Sequence
 import torch
 
 from ..models import layers
+from ..utils import profiling
 from . import _build
 
 Tensor = torch.Tensor
 
 TAIL_KERNELS = (3, 3, 3, 3, 2, 2)
+LAUNCHES = profiling.launch_key("conv_tail")
 
 
 def conv_tail_supported(conv_kernel: Sequence[int], conv_stride: Sequence[int],
@@ -60,6 +58,18 @@ def conv_tail_supported(conv_kernel: Sequence[int], conv_stride: Sequence[int],
             and all(s == 2 for s in conv_stride[1:])
             and len(set(conv_dim)) == 1
             and conv_dim[0] % 128 == 0)
+
+
+def takes(convs: list, conv_stride: Sequence[int], device: torch.device,
+          dtype: torch.dtype) -> bool:
+    """Whether `conv_tail` launches the kernel for an x1 on `device` in
+    `dtype`: CUDA, a dtype of ROUTES, the stack's geometry
+    (`conv_tail_supported`), no gradient wanted for its parameters."""
+    tensors = _layer_tensors(convs)
+    return (device.type == "cuda" and dtype in ROUTES
+            and conv_tail_supported([k.shape[-1] for k in tensors[0]], conv_stride,
+                                    [k.shape[0] for k in tensors[0]])
+            and not _build.grad_wanted(t for group in tensors for t in group))
 
 
 def tail_lengths(T1: int) -> List[int]:
@@ -172,8 +182,7 @@ def _conv_tail_fake(x1, kernels, biases, ln_scales, ln_shifts, has_ln, ln_eps):
 def _conv_tail_cuda(x1: Tensor, kernels: List[Tensor], biases: List[Optional[Tensor]],
                     ln_scales: List[Optional[Tensor]], ln_shifts: List[Optional[Tensor]],
                     has_ln: bool, ln_eps: float) -> Tensor:
-    """The launch: checks what the kernel takes, packs the weights and
-    counts the launch on the `conv_tail` wrapper."""
+    """The launch: checks what the kernel takes, packs the weights, counts it."""
     convs = _convs(kernels, biases, ln_scales, ln_shifts)
     B, T1, C = x1.shape
     lengths = tail_lengths(T1)
@@ -209,7 +218,7 @@ def _conv_tail_cuda(x1: Tensor, kernels: List[Tensor], biases: List[Optional[Ten
     _build.launch("conv_tail", _SIGNATURES, entry, x1.device, x1.data_ptr(),
                   w.data_ptr(), bias.data_ptr(), ln_s.data_ptr(), ln_b.data_ptr(),
                   scratch.data_ptr(), out.data_ptr(), B, T1, C, int(has_ln), ln_eps)
-    conv_tail.launches += 1
+    profiling.launched(LAUNCHES)
     return out
 
 
@@ -219,25 +228,15 @@ def conv_tail(convs: list, x1: Tensor, *, has_ln: bool,
     convs: params["convs"] (7 layers, kernels [C_out, C_in, K], optional
     "bias" and "ln"). It calls `ser_torch::conv_tail`: on a CPU tensor the
     plain version, on a CUDA tensor the kernel (which packs the weights
-    itself), which raises on what it does not take. Where autograd records
-    and x1 or a parameter wants a gradient, a CPU tensor takes the plain
-    version with its history and a CUDA tensor raises: the kernel has no
-    backward."""
+    itself), which raises on what it does not take; a call that wants a
+    gradient goes by `_build.takes_plain`."""
     if x1.dim() != 3:
         raise ValueError(f"conv_tail: x1 {tuple(x1.shape)} is not [B, T1, C]")
     if tail_lengths(x1.shape[1])[-1] < 1:
         raise ValueError(f"conv_tail: T1={x1.shape[1]} frames are too few for the "
                          "six stride-2 layers")
-    if x1.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"conv_tail: no kernel for device {x1.device}")
     tensors = _layer_tensors(convs)
-    if torch.is_grad_enabled() and (x1.requires_grad or any(
-            t is not None and t.requires_grad for group in tensors for t in group)):
-        if x1.device.type == "cpu":
-            return conv_tail_plain(convs, x1, has_ln=has_ln, ln_eps=ln_eps)
-        raise RuntimeError("conv_tail: the CUDA kernel has no backward; run it under "
-                           "torch.no_grad() or torch.inference_mode()")
+    if _build.takes_plain("conv_tail", x1.device, (x1, *(t for group in tensors for t in group))):
+        return conv_tail_plain(convs, x1, has_ln=has_ln, ln_eps=ln_eps)
     return torch.ops.ser_torch.conv_tail(x1, *tensors, has_ln, ln_eps)
 
-
-conv_tail.launches = 0

@@ -32,11 +32,13 @@ import math
 
 import torch
 
+from ..utils import profiling
 from . import _build
 
 Tensor = torch.Tensor
 
 NEG_BIG = -1e30
+LAUNCHES = profiling.launch_key("flash_attention")
 
 
 def _heads(x: Tensor, num_heads: int) -> Tensor:
@@ -114,8 +116,5 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, kv_mask: Tensor, *,
     _build.launch("flash_attention", _SIGNATURES, ROUTES[q.dtype], q.device, q.data_ptr(),
                   k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
                   B, Sq, Skv, num_heads, Dh)
-    flash_attention.launches += 1
+    profiling.launched(LAUNCHES)
     return out
-
-
-flash_attention.launches = 0

@@ -16,10 +16,7 @@ of 51k frames at the bf16 tensor cores' 989 TFLOP/s.
 
 The op is registered as `ser_torch::pos_conv` (its CPU implementation the
 plain version, its CUDA implementation the launch), so a program traced by
-torch.export holds one node for it. `pos_conv` takes the plain version for
-a tensor on the CPU only; for a CUDA tensor it launches the kernel or
-raises. The kernel has no backward: on a CUDA tensor the wrapper raises
-where autograd is recording and an input wants a gradient.
+torch.export holds one node for it.
 """
 
 from __future__ import annotations
@@ -30,12 +27,14 @@ from typing import Optional
 import torch
 
 from ..models import layers
+from ..utils import profiling
 from . import _build
 
 Tensor = torch.Tensor
 
 GROUP_CHANNELS = (48, 64)   # Cg: the wgmma widths the kernel has
 MAX_TAPS = 128              # a tile's halo, 127 + K rows, fits one 256-row TMA box
+LAUNCHES = profiling.launch_key("pos_conv")
 
 
 def pos_conv_supported(group_channels: int, taps: int) -> bool:
@@ -43,6 +42,14 @@ def pos_conv_supported(group_channels: int, taps: int) -> bool:
     and an even K of at most MAX_TAPS (wav2vec2-base, -large, HuBERT and
     WavLM: K = 128; not the tiny students' Cg = 16)."""
     return group_channels in GROUP_CHANNELS and taps % 2 == 0 and 2 <= taps <= MAX_TAPS
+
+
+def takes(conv: dict, h: Tensor) -> bool:
+    """Whether `pos_conv` launches the kernel: CUDA bf16, its Cg and K, no gradient."""
+    kernel = conv["kernel"]
+    return (h.is_cuda and h.dtype == torch.bfloat16
+            and pos_conv_supported(kernel.shape[1], kernel.shape[-1])
+            and not _build.grad_wanted((h, *conv.values())))
 
 
 def pos_conv_plain(conv: dict, h: Tensor) -> Tensor:
@@ -85,8 +92,7 @@ def build() -> None:
 
 @pos_conv_op.register_kernel("cuda")
 def _pos_conv_cuda(h: Tensor, kernel: Tensor, bias: Optional[Tensor]) -> Tensor:
-    """The launch: checks what the kernel takes, packs the weights and
-    counts the launch on the `pos_conv` wrapper."""
+    """The launch: checks what the kernel takes, packs the weights, counts it."""
     if (h.dim() != 3 or h.dtype != torch.bfloat16 or not h.is_contiguous()
             or h.data_ptr() % 16 != 0):
         raise ValueError(f"pos_conv: the kernel takes a contiguous, 16-byte aligned bf16 "
@@ -111,7 +117,7 @@ def _pos_conv_cuda(h: Tensor, kernel: Tensor, bias: Optional[Tensor]) -> Tensor:
     out = torch.empty_like(h)
     _build.launch("pos_conv", _SIGNATURES, "pos_conv_bf16", h.device, h.data_ptr(),
                   w.data_ptr(), b.data_ptr(), out.data_ptr(), B, T, C // Cg, Cg, K)
-    pos_conv.launches += 1
+    profiling.launched(LAUNCHES)
     return out
 
 
@@ -121,17 +127,8 @@ def pos_conv(conv: dict, h: Tensor) -> Tensor:
     C / Cg, padding K // 2, the first T frames. It calls
     `ser_torch::pos_conv`: on a CPU tensor the plain version, on a CUDA
     tensor the kernel, which takes bf16 and raises on what it does not
-    take. Where autograd records and an input wants a gradient, a CPU
-    tensor takes the plain version with its history and a CUDA tensor
-    raises: the kernel has no backward."""
-    if h.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"pos_conv: no kernel for device {h.device}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (h, *conv.values())):
-        if h.device.type == "cpu":
-            return pos_conv_plain(conv, h)
-        raise RuntimeError("pos_conv: the CUDA kernel has no backward; run it under "
-                           "torch.no_grad() or torch.inference_mode()")
+    take; a call that wants a gradient goes by `_build.takes_plain`."""
+    if _build.takes_plain("pos_conv", h.device, (h, *conv.values())):
+        return pos_conv_plain(conv, h)
     return torch.ops.ser_torch.pos_conv(h, conv["kernel"], conv.get("bias"))
 
-
-pos_conv.launches = 0

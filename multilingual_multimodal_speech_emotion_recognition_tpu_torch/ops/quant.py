@@ -33,10 +33,13 @@ from typing import Iterable
 import torch
 import torch.nn.functional as F
 
+from ..utils import profiling
+
 Tensor = torch.Tensor
 
 _EPS = 1e-12
 MIN_ROWS = 17  # torch._int_mm on CUDA takes more than 16 rows
+LAUNCHES = profiling.launch_key("int8_matmul")
 
 
 def _per_127(t: Tensor) -> Tensor:
@@ -92,11 +95,8 @@ def int8_matmul(xq: Tensor, kq: Tensor) -> Tensor:
     if kq.stride(0) != 1:
         raise ValueError("int8_matmul: kernel_q must be column-major on the card "
                          "(quant.card_layout, as quantize_linear stores it)")
-    int8_matmul.launches += 1
+    profiling.launched(LAUNCHES)
     return _int_mm_padded(xq, kq)
-
-
-int8_matmul.launches = 0
 
 
 def linear_int8(params: dict, x: Tensor) -> Tensor:

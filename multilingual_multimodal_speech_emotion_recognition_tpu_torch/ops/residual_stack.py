@@ -43,9 +43,11 @@ from typing import Iterator, NamedTuple, Tuple
 import torch
 
 from ..models import layers
+from ..utils import profiling
 from . import _build
 
 Tensor = torch.Tensor
+LAUNCHES = profiling.launch_key("residual_stack")
 
 # What csrc/residual_stack.cu takes; plan() keeps to it.
 WARPS = 8                        # 256 threads a block
@@ -198,8 +200,7 @@ def _residual_stack_fake(x, *layer_tensors):
 
 @residual_stack_op.register_kernel("cuda")
 def _residual_stack_cuda(x: Tensor, *layer_tensors: Tensor) -> Tensor:
-    """The launch: checks what the kernel takes, cuts the grid by `plan`
-    and counts the launch on the `residual_stack` wrapper."""
+    """The launch: checks what the kernel takes, cuts the grid by `plan`, counts it."""
     w1, w2 = layer_tensors[4], layer_tensors[6]
     L, D = w1.shape[:2]
     if x.dim() != 2 or x.shape[1] != D or x.shape[0] < 1:
@@ -227,7 +228,7 @@ def _residual_stack_cuda(x: Tensor, *layer_tensors: Tensor) -> Tensor:
                   *(t.data_ptr() for t in args), out.data_ptr(), exchange[0].data_ptr(),
                   exchange[1].data_ptr(), arrivals.data_ptr(), B, L, D, p.rows,
                   p.col_width, p.col_groups, p.row_blocks, p.depth)
-    residual_stack.launches += 1
+    profiling.launched(LAUNCHES)
     return out
 
 
@@ -235,20 +236,13 @@ def residual_stack(stacked: dict, x: Tensor) -> Tensor:
     """Eval-path residual stack. stacked: the classifier's [L, ...] layer
     parameters; x: [B, D] f32. It calls `ser_torch::residual_stack`: on a
     CPU tensor the plain version, on a CUDA tensor the kernel, which raises
-    on what it does not take. Where autograd records and x or a layer
-    parameter wants a gradient, a CPU tensor takes the plain loop with its
-    history and a CUDA tensor raises: the kernel has no backward."""
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"residual_stack: no kernel for device {x.device}")
-    if torch.is_grad_enabled() and (x.requires_grad or any(
-            t.requires_grad for sub in stacked.values() for t in sub.values())):
-        if x.device.type == "cpu":
-            return residual_stack_plain(stacked, x)
-        raise RuntimeError(
-            "residual_stack: the CUDA kernel has no backward; run the eval forward "
-            "under torch.no_grad() or torch.inference_mode(), and train through "
-            "the classifier's plain stack (deterministic=False)")
+    on what it does not take; a call that wants a gradient goes by
+    `_build.takes_plain`."""
+    if _build.takes_plain("residual_stack", x.device,
+                          (x, *(t for sub in stacked.values() for t in sub.values())),
+                          "run the eval forward under torch.no_grad() or "
+                          "torch.inference_mode(), and train through the classifier's "
+                          "plain stack (deterministic=False)"):
+        return residual_stack_plain(stacked, x)
     return torch.ops.ser_torch.residual_stack(x, *(stacked[a][b] for a, b in _LAYER_TENSORS))
 
-
-residual_stack.launches = 0

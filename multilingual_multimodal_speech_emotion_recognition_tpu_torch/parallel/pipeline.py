@@ -30,6 +30,7 @@ from torch.utils import checkpoint as ckpt
 from ..config import Wav2Vec2Config
 from ..models import layers
 from ..models import wav2vec2 as w2v
+from ..ops import _build
 from ..utils.runtime import leaves_with_paths, map_leaves
 from . import comm
 from .mesh import DATA_AXIS, MODEL_AXIS
@@ -78,7 +79,7 @@ def encoder_stack_pipeline(
     ins = [h, *(t for _, t in leaves_with_paths(stacked))]
     if rel_attn_embed is not None:
         ins.append(rel_attn_embed)
-    grads_wanted = torch.is_grad_enabled() and any(t.requires_grad for t in ins)
+    grads_wanted = _build.grad_wanted(ins)
     if grads_wanted:
         groups = [mesh[a].get_group() for a in mesh.mesh_dim_names if mesh[a].size() > 1]
         ins = comm.replicated_in(groups, *ins)

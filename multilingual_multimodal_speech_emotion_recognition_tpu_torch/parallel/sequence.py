@@ -31,6 +31,7 @@ import torch.nn.functional as F
 from ..config import Wav2Vec2Config
 from ..models import layers
 from ..models import wav2vec2 as w2v
+from ..ops import _build
 from . import comm
 from .mesh import DATA_AXIS, MODEL_AXIS
 
@@ -147,10 +148,7 @@ def encoder_stack_sequence_parallel(
     w2v.check_supported(cfg)
     if (rel_attn_embed is not None) != bool(cfg.gated_relpos_bias):
         raise ValueError("pass rel_attn_embed exactly when cfg.gated_relpos_bias is set")
-    leaves = [h, *(t for t in _flat(stacked))]
-    if rel_attn_embed is not None:
-        leaves.append(rel_attn_embed)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in leaves):
+    if _build.grad_wanted([h, rel_attn_embed, *_flat(stacked)]):
         raise RuntimeError("the ring attention stack has no backward: call it under "
                            "torch.no_grad() (the eval / frozen-backbone path)")
     seq = mesh[seq_axis]

@@ -10,11 +10,12 @@ Beside them, the program's own spans and counters, off unless switched on
 (`tracing()`, or `trace()` for its duration): `span(name)` is a
 `record_function` range "ser.<name>" at a layer boundary, so a profiler
 trace shows the program's layers on the kernels' timeline; `count(name, n)`
-adds to a named counter; `counters()` snapshots them beside the kernels'
-launch counts. Off, a span is one shared no-op context and a count returns
-at once: no device operation, host read or allocation. While torch.compile
-or torch.export traces, spans are no-ops too, so exported programs are the
-same either way.
+adds to a named counter; `counters()` snapshots them beside the launch
+table. Off, a span is one shared no-op context and a count returns at once:
+no device operation, host read or allocation. While torch.compile or
+torch.export traces, spans are no-ops too, so exported programs are the
+same either way. The launch table, always on, counts each hand-written
+kernel's launching calls under `launch_key(name)`, there from its import.
 """
 
 from __future__ import annotations
@@ -36,11 +37,12 @@ SPAN_PREFIX = "ser."
 
 
 class _Tracing:
-    """Whether spans and counts record, and the named counters."""
+    """Whether spans and counts record; the named counters; the launch table."""
 
     def __init__(self):
         self.on = False
         self.counts: Dict[str, int] = {}
+        self.launch_table: Dict[str, int] = {}
         self.lock = threading.Lock()
 
 
@@ -65,6 +67,19 @@ def count(name: str, n: int = 1) -> None:
         _TRACING.counts[name] = _TRACING.counts.get(name, 0) + n
 
 
+def launch_key(name: str) -> str:
+    """Kernel `name`'s key in the launch table, `<name>.launches`, put there at 0."""
+    key = f"{name}.launches"
+    _TRACING.launch_table.setdefault(key, 0)
+    return key
+
+
+def launched(key: str) -> None:
+    """Count one launching call under `key` (from `launch_key`)."""
+    with _TRACING.lock:
+        _TRACING.launch_table[key] += 1
+
+
 @contextlib.contextmanager
 def tracing():
     """Spans and counts on inside the block; the previous state after it."""
@@ -77,18 +92,9 @@ def tracing():
 
 
 def counters() -> Dict[str, int]:
-    """A snapshot of the named counters and the hand-written kernels'
-    `.launches`, by name; callers take the difference of two."""
-    # imported here: the kernels' modules import the models, which import this one
-    from ..ops import (attentive_pooling, conv_front, conv_tail, flash_attention, pos_conv,
-                       quant, residual_stack)
+    """Named counters and launch table, a snapshot; callers take the difference of two."""
     with _TRACING.lock:
-        snap = dict(_TRACING.counts)
-    for fn in (residual_stack.residual_stack, attentive_pooling.attentive_stats_pooling,
-               flash_attention.flash_attention, conv_front.conv_front, conv_tail.conv_tail,
-               pos_conv.pos_conv, quant.int8_matmul):
-        snap[f"{fn.__name__}.launches"] = fn.launches
-    return snap
+        return {**_TRACING.counts, **_TRACING.launch_table}
 
 
 @contextlib.contextmanager

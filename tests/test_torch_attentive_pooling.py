@@ -15,6 +15,7 @@ from multilingual_multimodal_speech_emotion_recognition_tpu.ops import (
     pallas_kernels as pk, pooling as jpool)
 from multilingual_multimodal_speech_emotion_recognition_tpu_torch.ops import (
     attentive_pooling as ap)
+from multilingual_multimodal_speech_emotion_recognition_tpu_torch.utils import profiling
 
 from torch_port_helpers import assert_close, j, perturb, t
 
@@ -35,10 +36,11 @@ def test_pooling_matches_pallas(dtype, B, S, D, tol):
     mask[-1, 3:] = 0
     want = pk.attentive_stats_pooling_pallas(jax.tree.map(lambda a: j(a, jdt), params),
                                              j(x, jdt), j(mask))
-    before = ap.attentive_stats_pooling.launches
+    before = profiling.counters()["attentive_stats_pooling.launches"]
     got = ap.attentive_stats_pooling(jax.tree.map(lambda a: t(a, dtype), params),
                                      t(x, dtype), t(mask))
-    assert ap.attentive_stats_pooling.launches == before  # CPU: the plain version
+    # CPU: the plain version
+    assert profiling.counters()["attentive_stats_pooling.launches"] == before
     assert got.dtype == dtype and tuple(got.shape) == (B, 2 * D)
     assert_close(got, want, tol)
 

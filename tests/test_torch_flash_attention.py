@@ -16,6 +16,7 @@ from multilingual_multimodal_speech_emotion_recognition_tpu.ops import (
     pallas_kernels as pk)
 from multilingual_multimodal_speech_emotion_recognition_tpu_torch.ops import (
     flash_attention as fa)
+from multilingual_multimodal_speech_emotion_recognition_tpu_torch.utils import profiling
 
 from torch_port_helpers import assert_close, j, t
 
@@ -39,10 +40,11 @@ def test_flash_attention_matches_pallas(dtype, B, Sq, Skv, D, H, tol):
     mask[-1, 1:Skv:3] = 0           # scattered padded keys
     want = pk.flash_attention(j(q, jdt), j(k, jdt), j(v, jdt), j(mask),
                               num_heads=H, block_q=16, block_k=16)
-    before = fa.flash_attention.launches
+    before = profiling.counters()["flash_attention.launches"]
     got = fa.flash_attention(t(q, dtype), t(k, dtype), t(v, dtype), t(mask),
                              num_heads=H)
-    assert fa.flash_attention.launches == before  # the CPU takes the plain version
+    # the CPU takes the plain version
+    assert profiling.counters()["flash_attention.launches"] == before
     assert got.dtype == dtype and tuple(got.shape) == (B, Sq, D)
     assert_close(got, want, tol)
 

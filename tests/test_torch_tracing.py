@@ -27,6 +27,9 @@ from multilingual_multimodal_speech_emotion_recognition_tpu_torch.frontend impor
     conditioning as tc)
 from multilingual_multimodal_speech_emotion_recognition_tpu_torch.models import (
     model as tm)
+# the seven kernels' modules: each puts its key in the launch table when imported
+from multilingual_multimodal_speech_emotion_recognition_tpu_torch.ops import (  # noqa: F401
+    attentive_pooling, conv_front, conv_tail, flash_attention, pos_conv, quant, residual_stack)
 from multilingual_multimodal_speech_emotion_recognition_tpu_torch.utils import profiling
 
 from torch_port_helpers import one_torch_thread
